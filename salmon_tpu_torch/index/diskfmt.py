@@ -1,0 +1,479 @@
+"""Compact on-disk index encodings (format v5).
+
+The v4 layout stored every plane raw: at genome-decoy scale
+(BASELINE config 5: 3.3G occurrence records / 3.2G keys) that is ~88 GB
+— an order of magnitude past pufferfish's compacted-dBG index for the
+same input (VERDICT r3 missing #2). v5 keeps the same logical index
+(sorted unique canonical k-mers -> occurrence CSR) but encodes the
+planes by their actual information content:
+
+  * kmers: sorted u64 -> u32 first-order deltas + an escape list for
+    deltas >= 2^32 (at genome key densities the mean gap is ~2^31, so
+    escapes are a few percent; when escapes would exceed ~25% — small
+    indexes with sparse keys — the plane falls back to raw u64,
+    flagged in info.json).  8 B/key -> ~4.4 B/key at genome scale.
+  * occ_offsets: (n+1) int64 -> per-key u8 counts + an escape list for
+    counts > 255 (offsets are a cumsum at load).  8 B/key -> ~1 B/key.
+  * occ_pos + occ_fwd: two planes -> one i32 `pf = pos << 1 | fwd`
+    plane — exactly the device occ_quad payload, so load-time packing
+    disappears.  5 B/rec -> 4 B/rec.
+  * seq_codes: byte-per-base (codes 0..4) -> 2-bit packed + an int64
+    exception list of N positions (code 4 is rare outside decoy gaps).
+    1 B/base -> 0.25 B/base.
+  * optional build-time occurrence pruning (--maxOccsKept): only the
+    first `kept` CSR records of each k-mer are stored. Query semantics
+    are IDENTICAL for occ_cap <= kept because the query path gathers at
+    most occ_cap leading records (mapping.score.expand_occurrences) and
+    the repetitive-seed filter needs only the TRUE count, which the
+    hash-table row keeps (count16, clamped like the reference's
+    maxReadOccs filter input, SalmonDefaults.hpp:64).
+
+Reference analog: pufferfish/SSHash's compact index
+(cmake/SalmonDependencies.cmake:11-16) — the structural ideas (implicit
+keys, Elias-Fano-style gap coding, per-unitig occurrence sharing) are
+theirs; this module applies the gap/exception coding that fits the
+direct k-mer->CSR layout the device query path wants.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+KMER_DELTA_ESCAPE_FRAC = 0.25   # fall back to raw u64 past this
+
+
+# ---------------------------------------------------------------------------
+# sorted-u64 key plane: u32 deltas + escape list
+# ---------------------------------------------------------------------------
+
+def unpack_keys(z: dict) -> np.ndarray:
+    if z["mode"] == "raw":
+        return np.asarray(z["kmers"], np.uint64)
+    if z["mode"] == "ef":
+        return unpack_keys_ef(z)
+    d = np.asarray(z["kmer_d32"]).astype(np.uint64)
+    esc_idx = np.asarray(z["kmer_esc_idx"])
+    if esc_idx.shape[0]:
+        d[esc_idx] = np.asarray(z["kmer_esc_val"], np.uint64)
+    return np.cumsum(d, dtype=np.uint64)
+
+
+# ---------------------------------------------------------------------------
+# Elias-Fano key plane: l low bits packed + unary-coded high gaps
+# ---------------------------------------------------------------------------
+#
+# Size n*(l + 2) bits with l = floor(log2(U / n)) — the
+# information-theoretic floor for a sorted sequence, and the encoding
+# pufferfish's SSHash dictionary uses for its key stream (reference
+# dependency wiring src/CMakeLists.txt:143-156). At genome-decoy scale
+# (3.27G keys over U = 2^62) this is ~34 bits/key vs delta32's 4.4 B —
+# keys 15.9 -> ~13.2 GB. Chunked pack/decode: chunks of a
+# multiple-of-8 keys keep every chunk's low-plane slice byte-aligned.
+
+_EF_CHUNK = 1 << 22          # keys per pack/decode chunk (mult of 8)
+
+
+def _ef_add_chunk(high: np.ndarray, low_out, l: int, i: int,
+                  kc: np.ndarray) -> None:
+    """Encode one chunk of sorted keys starting at key index i (i must
+    be a multiple of 8 so the low-plane slice stays byte-aligned):
+    ORs the chunk's unary high bits into `high` and writes its packed
+    low bits into `low_out` (array or memmap). Single definition shared
+    by pack_keys_ef, write_keys_ef_npy, and the migration script —
+    bit-level encoding must never fork (r5 review)."""
+    pos = (kc >> np.uint64(l)).astype(np.int64) \
+        + np.arange(i, i + kc.shape[0], dtype=np.int64)
+    # distinct bits per byte OR together as a weighted bincount
+    # (positions strictly increase, so each bit is set once); rebased
+    # to the chunk's first byte so the transient stays chunk-sized
+    lo_b = int(pos[0] >> 3)
+    by = np.bincount((pos >> 3) - lo_b,
+                     weights=(1 << (7 - (pos & 7))).astype(np.float64))
+    high[lo_b:lo_b + by.shape[0]] |= by.astype(np.uint8)
+    if l:
+        lowv = kc & np.uint64((1 << l) - 1)
+        bits = ((lowv[:, None] >> np.arange(
+            l - 1, -1, -1, dtype=np.uint64)[None, :])
+            & np.uint64(1)).astype(np.uint8)
+        b0 = (i * l) >> 3
+        packed = np.packbits(bits.reshape(-1))
+        low_out[b0:b0 + packed.shape[0]] = packed
+
+
+def _ef_low_chunk(low: np.ndarray, l: int, i: int, j: int) -> np.ndarray:
+    """Decode low-bit values for keys [i, j) (i*l must be a multiple of
+    8 — guaranteed for chunk starts at multiples of 8 keys)."""
+    if l == 0:
+        return np.zeros(j - i, np.uint64)
+    b0 = (i * l) >> 3
+    b1 = -(-(j * l) // 8)
+    bits = np.unpackbits(np.asarray(low[b0:b1]))[: (j - i) * l]
+    bits = bits.reshape(j - i, l).astype(np.uint64)
+    out = np.zeros(j - i, np.uint64)
+    for c in range(l):
+        out |= bits[:, c] << np.uint64(l - 1 - c)
+    return out
+
+
+def iter_keys_ef(z: dict, chunk: int = _EF_CHUNK):
+    """Yield (start, keys) chunks from an EF plane (streaming decode:
+    one sequential pass over the high bitvector)."""
+    n = int(z["ef_n"])
+    l = int(z["ef_l"])
+    if n == 0:
+        return
+    high = np.asarray(z["ef_high"])
+    low = z["ef_low"]
+    seen = 0                 # keys decoded so far
+    buf = np.zeros(0, np.int64)
+    byte_pos = 0
+    while seen < n:
+        want = min(chunk, n - seen)
+        # accumulate set-bit positions until we have `want`
+        while buf.shape[0] < want and byte_pos < high.shape[0]:
+            nb = min(1 << 24, high.shape[0] - byte_pos)
+            bits = np.unpackbits(high[byte_pos:byte_pos + nb])
+            pos = np.flatnonzero(bits).astype(np.int64) \
+                + np.int64(byte_pos * 8)
+            buf = np.concatenate([buf, pos])
+            byte_pos += nb
+        take = buf[:want]
+        buf = buf[want:]
+        hi = (take - np.arange(seen, seen + want,
+                               dtype=np.int64)).astype(np.uint64)
+        keys = (hi << np.uint64(l)) | _ef_low_chunk(
+            low, l, seen, seen + want)
+        yield seen, keys
+        seen += want
+
+
+def unpack_keys_ef(z: dict) -> np.ndarray:
+    n = int(z["ef_n"])
+    out = np.empty(n, np.uint64)
+    for start, keys in iter_keys_ef(z):
+        out[start:start + keys.shape[0]] = keys
+    return out
+
+
+# ---------------------------------------------------------------------------
+# CSR offsets: u8 counts + escapes
+# ---------------------------------------------------------------------------
+
+def pack_counts(counts: np.ndarray) -> dict:
+    counts = np.asarray(counts)          # int32 or int64; no upcast copy
+    esc = np.nonzero(counts > 0xFF)[0]
+    c8 = np.minimum(counts, 0xFF).astype(np.uint8)
+    return {"occ_cnt8": c8, "occ_cnt_esc_idx": esc.astype(np.int64),
+            "occ_cnt_esc_val": counts[esc].astype(np.int64)}
+
+
+def unpack_counts(z: dict) -> np.ndarray:
+    """Returns the (n,) int64 per-key counts."""
+    c = np.asarray(z["occ_cnt8"]).astype(np.int64)
+    esc_idx = np.asarray(z["occ_cnt_esc_idx"])
+    if esc_idx.shape[0]:
+        c[esc_idx] = np.asarray(z["occ_cnt_esc_val"], np.int64)
+    return c
+
+
+# ---------------------------------------------------------------------------
+# 2-bit sequence plane with N escapes
+# ---------------------------------------------------------------------------
+
+def pack_seq2(codes: np.ndarray) -> dict:
+    """codes: (n,) uint8 in 0..4 (4 = N). 4 bases/byte + N positions."""
+    codes = np.asarray(codes, np.uint8)
+    n = codes.shape[0]
+    n_pos = np.nonzero(codes >= 4)[0].astype(np.int64)
+    c = np.where(codes >= 4, 0, codes).astype(np.uint8)
+    pad = (-n) % 4
+    if pad:
+        c = np.concatenate([c, np.zeros(pad, np.uint8)])
+    c = c.reshape(-1, 4)
+    packed = (c[:, 0] | (c[:, 1] << 2) | (c[:, 2] << 4)
+              | (c[:, 3] << 6)).astype(np.uint8)
+    return {"seq2": packed, "seq2_n": n_pos,
+            "seq2_len": np.int64(n)}
+
+
+def unpack_seq2(z: dict) -> np.ndarray:
+    packed = np.asarray(z["seq2"], np.uint8)
+    n = int(z["seq2_len"])
+    out = np.empty(packed.shape[0] * 4, np.uint8)
+    out[0::4] = packed & 3
+    out[1::4] = (packed >> 2) & 3
+    out[2::4] = (packed >> 4) & 3
+    out[3::4] = (packed >> 6) & 3
+    out = out[:n]
+    n_pos = np.asarray(z["seq2_n"])
+    if n_pos.shape[0]:
+        out[n_pos] = 4
+    return out
+
+
+# ---------------------------------------------------------------------------
+# oct alignment: no key's gatherable records straddle an 8-record row
+# ---------------------------------------------------------------------------
+
+def oct_align_csr(occ_offsets, arrays, pad_vals, cap: int = 8):
+    """Re-lay the CSR so each key's first min(count, cap) records live in
+    ONE 8-record oct row (mapping.score.expand_occurrences row0).
+
+    Inserts pad records (values from `pad_vals`, e.g. txp = -1 which the
+    query path already masks as a non-hit separator-like invalid) between
+    keys whenever the next key's leading records would cross a row
+    boundary. With every key aligned this way, a C <= 8 expand never
+    needs the budgeted tail pool for ordinary slots — the pool stays
+    only for shadow-merged blocks and C > 8 configs, so its budget can
+    shrink ~8x without any saturation risk (the paralog sim saturated
+    the unaligned budget at 101k windows).
+
+    Returns (new_offsets int64, [padded arrays]).
+    """
+    off = np.asarray(occ_offsets, np.int64)
+    counts = np.diff(off)
+    n = counts.shape[0]
+    pads = _oct_align_pads(counts, cap)
+    starts = np.empty(n, np.int64)
+    np.cumsum(counts + pads, out=starts)
+    starts -= counts               # each key's padded start
+    total_new = int(starts[-1] + counts[-1]) if n else 0
+    # scatter old records into the padded layout (per-key contiguity)
+    nrec = int(off[-1])
+    local = np.arange(nrec, dtype=np.int64) - np.repeat(off[:-1], counts)
+    gdst = np.repeat(starts, counts) + local
+    out_arrays = []
+    for a, pv in zip(arrays, pad_vals):
+        a = np.asarray(a)
+        buf = np.full(total_new, pv, a.dtype)
+        buf[gdst] = a[:nrec]
+        out_arrays.append(buf)
+    res_off = np.empty(n + 1, np.int64)
+    res_off[:n] = starts
+    res_off[n] = total_new
+    return res_off, out_arrays
+
+
+def _oct_align_pads(counts: np.ndarray, cap: int) -> np.ndarray:
+    """Per-key pad records so min(count, cap) leading records never
+    cross an oct-row boundary. Sequential greedy (phase chain) over
+    Python ints: each key's pad depends on every earlier key's."""
+    counts = np.ascontiguousarray(counts, np.int64)
+    pads = [0] * counts.shape[0]
+    pos = 0
+    for i, (c, lead) in enumerate(zip(counts.tolist(),
+                                      np.minimum(counts, cap).tolist())):
+        phase = pos & 7
+        if phase + lead > 8:
+            pads[i] = 8 - phase
+        pos += pads[i] + c
+    return np.asarray(pads, np.int64)
+
+
+# ---------------------------------------------------------------------------
+# occurrence pruning (--maxOccsKept)
+# ---------------------------------------------------------------------------
+
+def prune_occurrences(occ_offsets, arrays, max_kept: int,
+                      chunk_keys: int = 1 << 26):
+    """Keep only each key's first `max_kept` CSR records.
+
+    arrays: sequence of (n_occs,) planes sliced identically. Compacts
+    IN PLACE (kept positions are always <= their source positions) in
+    bounded key chunks, so genome-scale pruning needs no full-size
+    gather-index transient; the INPUT arrays are mutated and the
+    returned planes are trimmed views of them.
+
+    Returns (new_offsets int64, [pruned arrays], true_counts int64).
+    Query-identical for occ_cap <= max_kept (see module docstring).
+    """
+    off = np.asarray(occ_offsets, np.int64)
+    n = off.shape[0] - 1
+    # per-key counts as int32 (a plain int64 diff is a 28 GB transient
+    # at genome scale — the second OOM)
+    counts = np.empty(n, np.int32)
+    kept = np.empty(n, np.int32)
+    for i in range(0, n, chunk_keys):
+        j = min(i + chunk_keys, n)
+        c = (off[i + 1:j + 1] - off[i:j]).astype(np.int32)
+        counts[i:j] = c
+        kept[i:j] = np.minimum(c, max_kept)
+    # the OFFSETS array is also rewritten in place (holding old + new
+    # int64 offset arrays side by side was the third genome-scale OOM):
+    # each chunk moves its records using the OLD offsets, then
+    # overwrites that slice with the new cumulative starts — writes
+    # stay strictly behind reads because kept <= counts
+    arrays = [np.asarray(a) for a in arrays]
+    new_base = 0
+    for i in range(0, n, chunk_keys):
+        j = min(i + chunk_keys, n)
+        kc = kept[i:j]
+        new_off_c = np.empty(j - i + 1, np.int64)
+        new_off_c[0] = new_base
+        np.cumsum(kc, out=new_off_c[1:])
+        new_off_c[1:] += new_base
+        tot_c = int(new_off_c[-1] - new_base)
+        # within-key position = arange - (this key's CHUNK-LOCAL start):
+        # new_off_c is absolute (includes new_base), the arange is not
+        gsrc = (np.repeat(off[i:j], kc)
+                + np.arange(tot_c, dtype=np.int64)
+                - np.repeat(new_off_c[:-1] - new_base, kc))
+        dst = slice(new_base, int(new_off_c[-1]))
+        for a in arrays:
+            a[dst] = a[gsrc]             # RHS gathers to a temp first
+        off[i:j] = new_off_c[:-1]
+        new_base = int(new_off_c[-1])
+    off[n] = new_base
+    return off, [a[:new_base] for a in arrays], counts
+
+
+# ---------------------------------------------------------------------------
+# 48-bit occurrence packing: (txp, pf) in 6 bytes
+# ---------------------------------------------------------------------------
+
+OCC48_SEP = (1 << 18) - 1     # packed stand-in for separator txp = -1
+
+
+def occ48_applicable(occ_txp, occ_pf) -> bool:
+    """(txp, pf) fit 18 + 30 bits. txp -1 rows (oct-align pads and
+    shadow-merge separators) use a reserved txp code and store
+    pf >> 1 — separator pf is sep_fp30 << 1 (builder.py:389), always
+    even, so the halved value fits the 30-bit field and the plane's
+    separators never force raw mode (r4 advisor). Covers human
+    gencode + decoys (~230k targets, chromosome positions < 2^29)."""
+    tx = np.asarray(occ_txp)
+    pf = np.asarray(occ_pf)
+    if tx.shape[0] == 0:
+        return True
+    if not (int(tx.max()) < OCC48_SEP and int(tx.min()) >= -1
+            and int(pf.min()) >= 0):
+        return False
+    ord_pf = pf[tx >= 0]
+    return (ord_pf.shape[0] == 0
+            or int(ord_pf.max()) < (1 << 30))
+
+
+def pack_occ48(occ_txp, occ_pf) -> np.ndarray:
+    """(n,) txp i32 + (n,) pf i32 -> (n, 3) u16 (6 B/record).
+    txp -1 rows store pf >> 1 (see occ48_applicable)."""
+    tx = np.asarray(occ_txp, np.int64)
+    pf = np.asarray(occ_pf, np.int64)
+    pf = np.where(tx < 0, pf >> 1, pf)
+    tx = np.where(tx < 0, OCC48_SEP, tx)
+    out = np.empty((tx.shape[0], 3), np.uint16)
+    out[:, 0] = pf & 0xFFFF
+    out[:, 1] = ((pf >> 16) & 0x3FFF) | ((tx & 3) << 14)
+    out[:, 2] = tx >> 2
+    return out
+
+
+def unpack_occ48(packed: np.ndarray, sep_halved: bool = True):
+    """(n, 3) u16 -> (txp i32, pf i32); separators decode to txp -1
+    with pf re-doubled back to sep_fp30 << 1. sep_halved=False reads
+    the pre-r5 encoding (separator pf stored verbatim) — loaders pass
+    info.json's occ48_sep_halved flag."""
+    p = np.asarray(packed, np.uint16).astype(np.int64)
+    pf = p[:, 0] | ((p[:, 1] & 0x3FFF) << 16)
+    tx = ((p[:, 2] << 2) | (p[:, 1] >> 14)).astype(np.int32)
+    sep = tx == OCC48_SEP
+    if sep_halved:
+        pf = np.where(sep, pf << 1, pf)
+    pf = pf.astype(np.int32)
+    tx = np.where(sep, -1, tx).astype(np.int32)
+    return tx, pf
+
+
+# ---------------------------------------------------------------------------
+# memory-bounded writers for genome-scale planes (chunked, memmapped)
+# ---------------------------------------------------------------------------
+
+_CHUNK = 1 << 27            # 128M elements per chunk
+
+
+def write_keys_ef_npy(out_dir: str, kmers: np.ndarray) -> dict:
+    """pack_keys_ef streamed into memmapped .npy planes (the low plane
+    is the big one: ~12 GB at genome scale; never materialized whole).
+    Returns {"kmer_ef_l", "kmer_ef_n"} for info.json."""
+    import os
+    from numpy.lib.format import open_memmap
+    n = int(kmers.shape[0])
+    U = int(kmers[-1]) + 1 if n else 1
+    l = max(int(np.floor(np.log2(max(U / max(n, 1), 1.0)))), 0)
+    low = open_memmap(os.path.join(out_dir, "kmer_ef_low.npy"),
+                      mode="w+", dtype=np.uint8,
+                      shape=(-(-(n * l) // 8),))
+    n_hi_bits = n + ((U - 1) >> l) + 1
+    high = np.zeros(-(-n_hi_bits // 8), np.uint8)
+    for i in range(0, n, _EF_CHUNK):
+        j = min(i + _EF_CHUNK, n)
+        _ef_add_chunk(high, low, l, i, np.asarray(kmers[i:j], np.uint64))
+    low.flush()
+    np.save(os.path.join(out_dir, "kmer_ef_high.npy"), high)
+    return {"kmer_ef_l": int(l), "kmer_ef_n": int(n)}
+
+
+def write_keys_npy(out_dir: str, kmers: np.ndarray) -> str:
+    """pack_keys equivalent that streams the chosen encoding into
+    memmapped .npy planes (no full-size transients). Picks the smaller
+    of delta32 and Elias-Fano by exact computed size; tiny/sparse key
+    sets fall back to raw u64. Returns the kmer mode ("ef" callers
+    must merge write_keys_ef_npy's info fields — save_index does)."""
+    import os
+    n = kmers.shape[0]
+    if n == 0:
+        np.save(os.path.join(out_dir, "kmers.npy"),
+                np.zeros(0, np.uint64))
+        return "raw", {}
+    # pass 1: escape fraction
+    n_esc = 0
+    for i in range(0, n, _CHUNK):
+        j = min(i + _CHUNK, n)
+        prev = kmers[i - 1] if i else np.uint64(0)
+        d = kmers[i:j] - np.concatenate(
+            [[prev], kmers[i:j - 1]]).astype(np.uint64)
+        n_esc += int((d >> np.uint64(32) != 0).sum())
+    if n_esc > KMER_DELTA_ESCAPE_FRAC * n:
+        np.save(os.path.join(out_dir, "kmers.npy"),
+                np.asarray(kmers, np.uint64))
+        return "raw", {}
+    U = int(kmers[-1]) + 1
+    l = max(int(np.floor(np.log2(max(U / n, 1.0)))), 0)
+    size_ef = (n * l + n + ((U - 1) >> l) + 1) / 8
+    size_d32 = 4 * n + 16 * n_esc
+    if size_ef < size_d32:
+        extra = write_keys_ef_npy(out_dir, kmers)
+        return "ef", extra
+    from numpy.lib.format import open_memmap
+    d32 = open_memmap(os.path.join(out_dir, "kmer_d32.npy"), mode="w+",
+                      dtype=np.uint32, shape=(n,))
+    esc_idx, esc_val = [], []
+    for i in range(0, n, _CHUNK):
+        j = min(i + _CHUNK, n)
+        prev = kmers[i - 1] if i else np.uint64(0)
+        d = kmers[i:j] - np.concatenate(
+            [[prev], kmers[i:j - 1]]).astype(np.uint64)
+        e = np.nonzero(d >> np.uint64(32))[0]
+        esc_idx.append(e + i)
+        esc_val.append(d[e])
+        d32[i:j] = d.astype(np.uint32)
+    del d32
+    np.save(os.path.join(out_dir, "kmer_esc_idx.npy"),
+            (np.concatenate(esc_idx) if esc_idx
+             else np.zeros(0)).astype(np.int64))
+    np.save(os.path.join(out_dir, "kmer_esc_val.npy"),
+            (np.concatenate(esc_val) if esc_val
+             else np.zeros(0)).astype(np.uint64))
+    return "delta32", {}
+
+
+def write_occ48_npy(out_dir: str, occ_txp, occ_pf) -> None:
+    """pack_occ48 streamed into a memmapped .npy (chunked)."""
+    import os
+    from numpy.lib.format import open_memmap
+    n = np.asarray(occ_txp).shape[0]
+    out = open_memmap(os.path.join(out_dir, "occ48.npy"), mode="w+",
+                      dtype=np.uint16, shape=(n, 3))
+    for i in range(0, n, _CHUNK):
+        j = min(i + _CHUNK, n)
+        out[i:j] = pack_occ48(occ_txp[i:j], occ_pf[i:j])
+    del out

@@ -1,0 +1,150 @@
+"""Equivalence-class accumulation and CSR packing.
+
+Replaces the reference's concurrent cuckoo-hash EquivalenceClassBuilder
+(include/salmon/internal/quant/EquivalenceClassBuilder.hpp:237-272) with a
+sort-based design (SURVEY.md §7 hard part #3): the device emits fixed-shape
+(R, T2) label/weight tensors per batch; the host dedupes rows with one
+vectorized np.unique per batch, buffers the per-batch tables, and merges
+them hierarchically (another np.unique over the concatenation once the
+buffer grows past the merged table size) — amortized O(N log N), no
+Python-per-class loops anywhere (the round-1 dict merge was the Amdahl
+ceiling of the whole mapping phase).
+
+Rich equivalence classes: the per-fragment aux weights are accumulated
+(summed) per class and normalized by the class count at finish()
+(reference TGValue::normalizeAux semantics). Range factorization
+(SalmonQuantify.cpp:845-853) extends the label with per-transcript
+conditional-probability bin ids; those ride along as extra int32 columns.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+INVALID_TXP = 0x7FFFFFFF
+
+
+@dataclasses.dataclass
+class PackedEqClasses:
+    """CSR-packed equivalence classes ready for the jitted EM."""
+    labels: np.ndarray    # (n_entries,) int32 transcript ids
+    weights: np.ndarray   # (n_entries,) float64 normalized aux weights
+    offsets: np.ndarray   # (n_classes + 1,) int64
+    counts: np.ndarray    # (n_classes,) float64 fragment counts
+    class_sizes: np.ndarray  # (n_classes,) int32
+
+    @property
+    def num_classes(self) -> int:
+        return self.counts.shape[0]
+
+    @property
+    def num_fragments(self) -> float:
+        return float(self.counts.sum())
+
+
+def _void_view(mat: np.ndarray) -> np.ndarray:
+    """Row-bytes view for fast 1-D np.unique over rows."""
+    m = np.ascontiguousarray(mat)
+    return m.view([("", "V%d" % (m.shape[1] * m.itemsize))]).ravel()
+
+
+def _dedupe_rows(key_mat: np.ndarray, counts: np.ndarray,
+                 wsum: np.ndarray):
+    """Aggregate duplicate rows: returns (uniq_keys, counts, wsum)."""
+    kv = _void_view(key_mat)
+    order = np.argsort(kv, kind="stable")
+    kv_s = kv[order]
+    is_new = np.empty(kv_s.shape[0], dtype=bool)
+    is_new[0] = True
+    is_new[1:] = kv_s[1:] != kv_s[:-1]
+    group = np.cumsum(is_new) - 1
+    n = int(group[-1]) + 1
+    uniq = key_mat[order[is_new]]
+    c_out = np.bincount(group, weights=counts[order],
+                        minlength=n)
+    w_out = np.empty((n, wsum.shape[1]), dtype=np.float64)
+    ws = wsum[order]
+    for j in range(wsum.shape[1]):
+        w_out[:, j] = np.bincount(group, weights=ws[:, j], minlength=n)
+    return uniq, c_out, w_out
+
+
+class EquivalenceClassAccumulator:
+    """Accumulates per-batch eq-class tensors into a global table."""
+
+    def __init__(self, merge_buffer_rows: int = 1 << 18):
+        self._chunks: list[tuple] = []   # (keys, counts, wsum)
+        self._buffered = 0
+        self._merge_buffer_rows = merge_buffer_rows
+        self._ncols: int | None = None
+        self._t2: int | None = None
+
+    def add_batch(self, eq_txp: np.ndarray, eq_weight: np.ndarray,
+                  eq_bins: np.ndarray | None = None) -> None:
+        """eq_txp: (R, T2) int32 sorted labels padded with INVALID_TXP;
+        eq_weight: (R, T2) float32 aux weights; eq_bins: optional (R, T2)
+        int32 range-factorization bins (part of the label)."""
+        valid_rows = eq_txp[:, 0] != INVALID_TXP
+        if not valid_rows.any():
+            return
+        txp = np.ascontiguousarray(eq_txp[valid_rows])
+        w = eq_weight[valid_rows].astype(np.float64)
+        if eq_bins is not None:
+            key_mat = np.concatenate(
+                [txp, np.ascontiguousarray(eq_bins[valid_rows])], axis=1)
+        else:
+            key_mat = txp
+        if self._ncols is None:
+            self._ncols = key_mat.shape[1]
+            self._t2 = txp.shape[1]
+
+        uniq, counts, wsum = _dedupe_rows(
+            key_mat, np.ones(key_mat.shape[0]), w)
+        self._chunks.append((uniq, counts, wsum))
+        self._buffered += uniq.shape[0]
+        # hierarchical merge: once the buffered chunk rows exceed the
+        # head chunk, collapse everything (keeps total work O(N log N))
+        if (len(self._chunks) > 1
+                and self._buffered - self._chunks[0][0].shape[0]
+                >= max(self._merge_buffer_rows,
+                       self._chunks[0][0].shape[0])):
+            self._collapse()
+
+    def _collapse(self) -> None:
+        if len(self._chunks) <= 1:
+            return
+        keys = np.concatenate([c[0] for c in self._chunks])
+        counts = np.concatenate([c[1] for c in self._chunks])
+        wsum = np.concatenate([c[2] for c in self._chunks])
+        self._chunks = [_dedupe_rows(keys, counts, wsum)]
+        self._buffered = self._chunks[0][0].shape[0]
+
+    @property
+    def num_classes(self) -> int:
+        self._collapse()
+        return self._chunks[0][0].shape[0] if self._chunks else 0
+
+    def finish(self) -> PackedEqClasses:
+        """Normalize aux weights by class count and pack to CSR
+        (reference EquivalenceClassBuilder::finish,
+        EquivalenceClassBuilder.hpp:165-181). Fully vectorized."""
+        self._collapse()
+        if not self._chunks:
+            return PackedEqClasses(
+                labels=np.zeros(0, np.int32), weights=np.zeros(0),
+                offsets=np.zeros(1, np.int64), counts=np.zeros(0),
+                class_sizes=np.zeros(0, np.int32))
+        keys, counts, wsum = self._chunks[0]
+        t2 = self._t2
+        txps = keys[:, :t2]
+        m = txps != INVALID_TXP
+        sizes = m.sum(axis=1).astype(np.int32)
+        labels = txps[m].astype(np.int32)
+        weights = (wsum / counts[:, None])[m]
+        offsets = np.zeros(sizes.shape[0] + 1, dtype=np.int64)
+        offsets[1:] = np.cumsum(sizes)
+        return PackedEqClasses(
+            labels=labels, weights=weights, offsets=offsets,
+            counts=counts.astype(np.float64), class_sizes=sizes)

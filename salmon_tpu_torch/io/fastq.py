@@ -1,0 +1,124 @@
+"""Host FASTQ streaming into fixed-shape encoded batches.
+
+Reference analog: the FQFeeder FastxParser producer threads feeding
+5k-50k-read chunks to workers (src/quant/SalmonQuantify.cpp:2418-2443,
+computeReadMiniBatchSize :157-184). Here the producer yields padded
+(R, L) uint8 code arrays ready for host->device transfer; raggedness is
+resolved on the host so the device work is fixed-shape.
+
+Pure-Python reader: the port loads no native library.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import gzip
+from typing import Iterator, Sequence
+
+import numpy as np
+
+from salmon_tpu_torch.utils.dna import encode_seq
+
+
+@dataclasses.dataclass
+class ReadChunk:
+    """One fixed-shape chunk of encoded reads (padded with invalid=4)."""
+    codes: np.ndarray            # (R, L) uint8
+    lengths: np.ndarray          # (R,) int32; 0 for padding rows
+
+
+@dataclasses.dataclass
+class PairedChunk:
+    left: ReadChunk
+    right: ReadChunk
+
+
+def _open_maybe_gz(path: str):
+    if str(path).endswith(".gz"):
+        return gzip.open(path, "rb")
+    return open(path, "rb")
+
+
+def _iter_fastq_seqs(path: str):
+    """Yield the sequence bytes of each record of a FASTQ/FASTA file."""
+    with _open_maybe_gz(path) as fh:
+        first = fh.read(1)
+        fh.seek(0)
+        if first == b">":  # FASTA reads
+            chunks = None
+            for line in fh:
+                line = line.rstrip()
+                if line.startswith(b">"):
+                    if chunks is not None:
+                        yield b"".join(chunks)
+                    chunks = []
+                else:
+                    chunks.append(line)
+            if chunks is not None:
+                yield b"".join(chunks)
+            return
+        while True:
+            hdr = fh.readline()
+            if not hdr:
+                return
+            seq = fh.readline().rstrip()
+            fh.readline()  # '+'
+            fh.readline()  # quals
+            yield seq
+
+
+#: length buckets so batch shapes take only a handful of values per run
+LEN_BUCKETS = (64, 96, 128, 160, 192, 256, 384, 512, 1024)
+
+
+def bucket_len(n: int, cap: int) -> int:
+    """Smallest bucketed length >= n (capped)."""
+    for b in LEN_BUCKETS:
+        if b >= min(n, cap):
+            return min(b, cap)
+    return cap
+
+
+def pack_seqs(seqs: Sequence[bytes], batch_size: int, max_len: int
+              ) -> tuple[np.ndarray, np.ndarray]:
+    """Pack a list of byte sequences into a padded (R, L) code array."""
+    n = len(seqs)
+    lens = np.fromiter((min(len(s), max_len) for s in seqs), dtype=np.int32,
+                       count=n)
+    out = np.full((batch_size, max_len), 4, dtype=np.uint8)
+    if n:
+        flat = encode_seq(b"".join(s[:max_len] for s in seqs))
+        mask = np.arange(max_len, dtype=np.int32)[None, :] < lens[:, None]
+        full_mask = np.zeros((batch_size, max_len), dtype=bool)
+        full_mask[:n] = mask
+        out[full_mask] = flat
+    full_lens = np.zeros(batch_size, dtype=np.int32)
+    full_lens[:n] = lens
+    return out, full_lens
+
+
+def iter_paired_chunks(paths1: Sequence[str], paths2: Sequence[str],
+                       batch_size: int, max_len: int
+                       ) -> Iterator[PairedChunk]:
+    """Stream paired-end reads as fixed-shape chunk pairs."""
+    if len(paths1) != len(paths2):
+        raise ValueError("paired-end file lists must have equal length")
+    s1: list[bytes] = []
+    s2: list[bytes] = []
+
+    def chunk() -> PairedChunk:
+        L = bucket_len(max(max(len(x) for x in s1),
+                           max(len(x) for x in s2)), max_len)
+        c1, l1 = pack_seqs(s1, batch_size, L)
+        c2, l2 = pack_seqs(s2, batch_size, L)
+        return PairedChunk(ReadChunk(c1, l1), ReadChunk(c2, l2))
+
+    for p1, p2 in zip(paths1, paths2):
+        for a, b in zip(_iter_fastq_seqs(p1), _iter_fastq_seqs(p2)):
+            s1.append(a)
+            s2.append(b)
+            if len(s1) == batch_size:
+                yield chunk()
+                s1, s2 = [], []
+    if s1:
+        yield chunk()

@@ -1,0 +1,418 @@
+"""End-to-end quantification, paired-end mapping mode, one device.
+
+Counterpart of salmon_tpu/quant.py (reference flow: salmonQuantify ->
+processReads workers -> eq classes -> CollapsedEMOptimizer::optimize ->
+GZipWriter outputs): stream fixed-shape chunks -> map each batch on the
+device -> host eq-class / FLD / counter accumulation -> effective
+lengths -> EM/VBEM on the device -> writers.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import logging
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from salmon_tpu_torch.constants import DEFAULTS, SalmonDefaults
+from salmon_tpu_torch.index.builder import TranscriptomeIndex, load_index
+from salmon_tpu_torch.inference import em as em_mod
+from salmon_tpu_torch.inference.clusters import normalize_alphas
+from salmon_tpu_torch.inference.eqclasses import EquivalenceClassAccumulator
+from salmon_tpu_torch.io import writers
+from salmon_tpu_torch.io.fastq import iter_paired_chunks
+from salmon_tpu_torch.mapping.pipeline import (MapperConfig,
+                                               device_index_tensors,
+                                               map_paired_batch)
+from salmon_tpu_torch.models.efflen import effective_lengths
+from salmon_tpu_torch.models.fld import FragmentLengthDistribution
+from salmon_tpu_torch.utils import libformat
+
+logger = logging.getLogger("salmon_tpu_torch")
+
+
+@dataclasses.dataclass
+class QuantResult:
+    names: list
+    counts: np.ndarray
+    eff_lens: np.ndarray
+    tpm: np.ndarray
+    num_processed: int
+    num_mapped: int
+    num_paired: int
+    num_orphans: int
+    em_info: dict
+    fmt_counts: dict
+    eq_classes: object = None
+    fld: object = None
+    lib_format: str = ""
+    mapping_stats: dict = dataclasses.field(default_factory=dict)
+    num_batches: int = 0
+
+
+class InsufficientAssignedFragments(RuntimeError):
+    """Reference: SalmonExceptions / minAssignedFrags gate."""
+
+
+class ForgettingMass:
+    """SVI step-size schedule (reference ForgettingMassCalculator,
+    ForgettingMassCalculator.hpp:23-64): logMass_t += ff*log(t-1) -
+    log(t^ff - 1), applied per device batch."""
+
+    def __init__(self, forgetting_factor: float = 0.65):
+        self.ff = forgetting_factor
+        self.log_mass = 0.0
+        self.t = 0
+
+    def next_log_mass(self) -> float:
+        self.t += 1
+        if self.t > 1:
+            self.log_mass += (self.ff * np.log(self.t - 1)
+                              - np.log(self.t ** self.ff - 1))
+        return self.log_mass
+
+
+DETECT_SAMPLES_NEEDED = 50_000  # LibraryTypeDetector numSamplesNeeded_
+
+
+def _detect_library_format(fmt_hist: np.ndarray) -> str:
+    """Auto-detect '-l A' for paired reads from the observed orientation
+    histogram (reference LibraryTypeDetector::mostLikelyType,
+    LibraryTypeDetector.hpp:34-143): orientation by argmax, then
+    strandedness with the 30%/70% forward-ratio bands."""
+    names = libformat.format_names_paired()
+    counts = {names[i]: int(fmt_hist[i]) for i in range(6)}
+    o_tot = {"I": counts["ISF"] + counts["ISR"],
+             "O": counts["OSF"] + counts["OSR"],
+             "M": counts["MSF"] + counts["MSR"]}
+    if sum(o_tot.values()) == 0:
+        return "IU"
+    # argmax with the reference's tie order (inward >= outward >= same)
+    o = "I"
+    if o_tot["O"] > o_tot["I"]:
+        o = "O"
+    if o_tot["M"] > o_tot[o]:
+        o = "M"
+    sf = counts["ISF"] + counts["OSF"] + counts["MSF"]
+    sr = counts["ISR"] + counts["OSR"] + counts["MSR"]
+    st = sf + sr
+    if st == 0:
+        return o + "U"
+    ratio = sf / st
+    if ratio < 0.3:
+        return o + "SR"
+    if ratio < 0.7:
+        return o + "U"
+    return o + "SF"
+
+
+def _check_ported(opts: SalmonDefaults) -> None:
+    """Options whose behaviour the port does not have yet."""
+    if opts.seq_bias_correct or opts.gc_bias_correct \
+            or opts.pos_bias_correct or opts.aux_target_file:
+        raise NotImplementedError(
+            "bias correction (--seqBias/--gcBias/--posBias/"
+            "--auxTargetFile) is ROADMAP queue 1 #13")
+    if opts.num_gibbs_samples or opts.num_bootstraps:
+        raise NotImplementedError(
+            "Gibbs sampling and bootstraps are ROADMAP queue 1 #12")
+    if opts.index_shards > 1:
+        raise NotImplementedError("--indexShards is ROADMAP queue 1 #15")
+
+
+def _to_np(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
+
+
+def quantify(index: TranscriptomeIndex | str, lib_format: str,
+             reads1: Sequence[str], reads2: Optional[Sequence[str]],
+             opts: SalmonDefaults = DEFAULTS, progress: bool = True,
+             device="cuda") -> QuantResult:
+    """Paired-end mapping-based quantification on `device` (reference:
+    salmonQuantify, src/quant/SalmonQuantify.cpp:2777)."""
+    t0 = time.time()
+    if reads2 is None:
+        raise NotImplementedError("single-end reads are ROADMAP queue 1 #10")
+    _check_ported(opts)
+    device = torch.device(device)
+    if isinstance(index, str):
+        index = load_index(index)
+    cfg = MapperConfig.from_index(index, opts)
+    dev = device_index_tensors(index, device)
+
+    fld = FragmentLengthDistribution(
+        max_val=opts.max_frag_length, prior_mu=opts.frag_len_prior_mean,
+        prior_sigma=opts.frag_len_prior_sd)
+    fmass = ForgettingMass(opts.forgetting_factor)
+    acc = EquivalenceClassAccumulator()
+    online_mass = np.zeros(index.num_targets, dtype=np.float64)
+    totals = {"num_processed": 0, "num_mapped": 0, "num_paired": 0,
+              "num_orphans": 0, "num_decoy_fragments": 0,
+              "num_dovetail_fragments": 0, "num_frags_filtered_vm": 0,
+              "num_alns_below_threshold": 0, "seed_tail_over": 0}
+    fmt_hist_total = np.zeros(6, dtype=np.int64)
+
+    auto_detect = lib_format.strip().upper() == "A"
+    resolved_format = None if auto_detect else lib_format.strip().upper()
+
+    def compat_tensors(fmt: libformat.LibraryFormat):
+        return (torch.as_tensor(libformat.paired_compat_table(fmt),
+                                device=device),
+                torch.as_tensor(libformat.orphan_compat_table(fmt),
+                                device=device))
+
+    if auto_detect:
+        # while detecting, every format is compatible (the reference
+        # runs with a neutral incompatPrior until the detector can guess,
+        # SalmonQuantify.cpp:691-700)
+        cp = torch.ones(6, dtype=torch.bool, device=device)
+        co = torch.ones((2, 2), dtype=torch.bool, device=device)
+        detect_hist = np.zeros(6, dtype=np.int64)
+    else:
+        cp, co = compat_tensors(libformat.parse_library_format(lib_format))
+
+    def put(a):
+        return torch.from_numpy(a).to(device)
+
+    def submit(chunk):
+        """Launch the mapping of one chunk (returns before the device
+        finishes)."""
+        # FLD snapshot for this minibatch (the LogCMFCache refresh
+        # analog); mode selects the fragment-prob form by burn-in stage
+        processed = totals["num_processed"]
+        if processed < opts.num_pre_burnin_frags:
+            mode = 0
+        elif processed >= opts.num_burnin_frags:
+            mode = 2
+        else:
+            mode = 1
+        fld_in = {
+            "logpmf": torch.as_tensor(fld.log_pmf(), dtype=torch.float32,
+                                      device=device),
+            "logcmf": torch.as_tensor(fld.log_cmf(), dtype=torch.float32,
+                                      device=device),
+            "mode": mode,
+        }
+        batch = {"codes_l": put(chunk.left.codes),
+                 "lengths_l": put(chunk.left.lengths),
+                 "codes_r": put(chunk.right.codes),
+                 "lengths_r": put(chunk.right.lengths)}
+        return map_paired_batch(batch, dev, cfg, fld_in, cp, co)
+
+    n_batches = 0
+    last_progress = time.time()
+
+    def consume(out):
+        nonlocal n_batches, last_progress
+        acc.add_batch(_to_np(out["eq_txp"]), _to_np(out["eq_weight"]),
+                      _to_np(out["eq_bins"]) if cfg.range_bins > 0
+                      else None)
+        fld.add_observations(_to_np(out["fld_hist"]).astype(np.float64))
+        online_mass[:] += (np.exp(fmass.next_log_mass())
+                           * _to_np(out["txp_mass"]).astype(np.float64))
+        for k in totals:
+            totals[k] += int(out[k])
+        fmt_hist_total[:] += _to_np(out["fmt_hist"]).astype(np.int64)
+        if totals["num_processed"] >= opts.num_burnin_frags:
+            fld.freeze()
+        n_batches += 1
+        if (progress and not opts.disable_live_progress
+                and time.time() - last_progress
+                >= opts.progress_update_ms / 1000.0):
+            last_progress = time.time()
+            el = time.time() - t0
+            logger.info(
+                "processed %d fragments (%.0f frags/s), mapped %.2f%%",
+                totals["num_processed"],
+                totals["num_processed"] / max(el, 1e-9),
+                100.0 * totals["num_mapped"]
+                / max(totals["num_processed"], 1))
+
+    # depth-deep host/device pipeline: consume batch N-depth while N
+    # runs (depth 1 = the reference's one-batch-stale online state)
+    depth = max(1, opts.pipeline_depth)
+    pending = collections.deque()
+    for chunk in iter_paired_chunks(reads1, reads2, opts.reads_per_batch,
+                                    opts.max_read_len):
+        out = submit(chunk)
+        if resolved_format is None:
+            # detection batches run synchronously (reference
+            # LibraryTypeDetector: 50k samples, neutral compat until then)
+            detect_hist += _to_np(out["fmt_hist"]).astype(np.int64)
+            if detect_hist.sum() >= DETECT_SAMPLES_NEEDED:
+                resolved_format = _detect_library_format(detect_hist)
+                logger.info("auto-detected library format: %s",
+                            resolved_format)
+                cp, co = compat_tensors(
+                    libformat.parse_library_format(resolved_format))
+        pending.append(out)
+        if len(pending) > depth:
+            consume(pending.popleft())
+    while pending:
+        consume(pending.popleft())
+    if auto_detect and resolved_format is None:
+        resolved_format = _detect_library_format(detect_hist)
+        logger.info("auto-detected library format (short input): %s",
+                    resolved_format)
+    map_seconds = time.time() - t0
+    if totals["seed_tail_over"]:
+        logger.warning(
+            "seed tail-gather budget saturated for %d k-mer windows "
+            "(their occurrences past the first oct row were dropped)",
+            totals["seed_tail_over"])
+    if totals["num_mapped"] < opts.min_assigned_frags:
+        raise InsufficientAssignedFragments(
+            f"salmon_tpu_torch was only able to assign "
+            f"{totals['num_mapped']} fragments (min required: "
+            f"{opts.min_assigned_frags})")
+
+    eq = acc.finish()
+    if opts.no_rich_eq_classes and eq.labels.shape[0]:
+        # --noRichEqClasses: flat aux weights 1/|label|
+        sz = np.repeat(eq.class_sizes.astype(np.float64), eq.class_sizes)
+        eq = dataclasses.replace(eq, weights=1.0 / np.maximum(sz, 1.0))
+    n_valid = index.num_valid_targets
+    fld_pmf = fld.pmf()
+    eff = effective_lengths(
+        np.asarray(index.lengths[:n_valid]), fld_pmf,
+        no_length_correction=opts.no_length_correction,
+        no_effective_length_correction=opts.no_effective_length_correction)
+    emc = em_mod.EMConfig(
+        use_vbem=opts.use_vb_opt and not opts.use_em,
+        vb_prior=opts.vb_prior,
+        per_transcript_prior=opts.per_transcript_prior,
+        rel_diff_tolerance=opts.relative_diff_tolerance,
+        max_iterations=opts.max_em_iterations,
+        min_iterations=opts.min_em_iterations)
+    # normalizeAlphas (reference SalmonUtils.cpp:462-529)
+    if eq.num_classes and online_mass[:n_valid].sum() > 0:
+        online_mass = normalize_alphas(eq, n_valid, online_mass[:n_valid])
+    else:
+        om_sum = online_mass[:n_valid].sum()
+        if om_sum > 0:
+            online_mass = online_mass * (totals["num_mapped"] / om_sum)
+
+    t_em = time.time()
+    if opts.skip_quant:
+        res = {"alphas": np.zeros(n_valid), "iterations": 0,
+               "max_rel_diff": 0.0, "converged": False, "skipped": True}
+    else:
+        res = em_mod.optimize(
+            eq, n_valid, eff, online_mass=online_mass[:n_valid],
+            total_mapped=float(totals["num_mapped"]), config=emc,
+            init_uniform=opts.init_uniform,
+            num_required_frags=opts.num_required_frags,
+            alt_init=opts.alternative_init_mode or opts.meta_mode,
+            device=device)
+    res["map_seconds"] = map_seconds
+    res["em_seconds"] = time.time() - t_em
+
+    counts = res["alphas"]
+    names = libformat.format_names_paired()
+    return QuantResult(
+        names=index.names[:n_valid], counts=counts, eff_lens=eff,
+        tpm=writers.compute_tpm(counts, eff),
+        num_processed=totals["num_processed"],
+        num_mapped=totals["num_mapped"],
+        num_paired=totals["num_paired"],
+        num_orphans=totals["num_orphans"],
+        em_info=res,
+        fmt_counts={nm: int(fmt_hist_total[i])
+                    for i, nm in enumerate(names)},
+        eq_classes=eq, fld=fld, lib_format=resolved_format,
+        mapping_stats={k: totals[k] for k in (
+            "num_decoy_fragments", "num_dovetail_fragments",
+            "num_frags_filtered_vm", "num_alns_below_threshold")},
+        num_batches=n_batches)
+
+
+def write_outputs(result: QuantResult, index: TranscriptomeIndex,
+                  out_dir: str, opts: SalmonDefaults = DEFAULTS,
+                  cmd_args: Optional[dict] = None,
+                  dump_eq: bool = False,
+                  dump_eq_weights: bool = True) -> None:
+    """Write the output directory (reference stageFinalizeMappingOutputs,
+    MappingPipelineStages.cpp:37-203)."""
+    n_valid = index.num_valid_targets
+    if not opts.skip_quant:
+        writers.write_quant_sf(out_dir, result.names,
+                               index.complete_lengths[:n_valid],
+                               result.eff_lens, result.counts,
+                               sig_digits=opts.sig_digits)
+    writers.write_cmd_info(out_dir, cmd_args or {})
+    # numCompat: observed formats compatible with the expected one
+    # (reference ReadLibrary::numCompat via salmon::utils::compatibleHit)
+    compat = libformat.paired_compat_table(
+        libformat.parse_library_format(result.lib_format))
+    num_compat = sum(int(result.fmt_counts.get(nm, 0)) for i, nm in
+                     enumerate(libformat.format_names_paired())
+                     if compat[i])
+    writers.write_lib_format_counts(
+        out_dir, result.lib_format, result.fmt_counts, num_compat,
+        result.num_processed, result.num_mapped)
+    aux = opts.aux_dir
+    pm = (100.0 * result.num_mapped / result.num_processed
+          if result.num_processed else 0.0)
+    writers.write_meta_info(out_dir, aux, {
+        "opt_type": "vb" if (opts.use_vb_opt and not opts.use_em) else "em",
+        "samp_type": "none",
+        "num_bootstraps": 0,
+        "num_libraries": 1,
+        "library_types": [result.lib_format],
+        "frag_dist_length": opts.max_frag_length + 1,
+        "seq_bias_correct": False,
+        "gc_bias_correct": False,
+        "pos_bias_correct": False,
+        "pos_bias_mode": "off",
+        "num_bias_bins": 4096,
+        "mapping_type": "mapping",
+        "keep_duplicates": index.info.get("keep_duplicates", True),
+        "num_valid_targets": n_valid,
+        "num_decoy_targets": index.num_targets - n_valid,
+        "num_eq_classes": result.eq_classes.num_classes
+        if result.eq_classes is not None else 0,
+        "serialized_eq_classes": dump_eq,
+        "eq_class_properties": ["range_factorized"]
+        if opts.range_factorization_bins > 0 else [],
+        "length_classes": [],
+        "index_seq_hash": index.info.get("SeqHash256", ""),
+        "index_name_hash": index.info.get("NameHash256", ""),
+        "index_seq_hash512": index.info.get("SeqHash512", ""),
+        "index_name_hash512": index.info.get("NameHash512", ""),
+        "index_decoy_seq_hash": index.info.get("DecoySeqHash", ""),
+        "index_decoy_name_hash": index.info.get("DecoyNameHash", ""),
+        "num_targets": index.num_targets,
+        "num_processed": result.num_processed,
+        "num_mapped": result.num_mapped,
+        "num_orphans_rescued": 0,
+        "num_decoy_fragments":
+        result.mapping_stats.get("num_decoy_fragments", 0),
+        "num_dovetail_fragments":
+        result.mapping_stats.get("num_dovetail_fragments", 0),
+        "num_fragments_filtered_vm":
+        result.mapping_stats.get("num_frags_filtered_vm", 0),
+        "num_alignments_below_threshold_for_mapped_fragments_vm":
+        result.mapping_stats.get("num_alns_below_threshold", 0),
+        "percent_mapped": pm,
+        "call": "quant",
+        "num_em_iterations": result.em_info.get("iterations", 0),
+        "em_converged": result.em_info.get("converged", False),
+        "frag_length_mean": (result.fld.summary()["mean"]
+                             if result.fld else 0.0),
+        "frag_length_sd": (result.fld.summary()["sd"]
+                           if result.fld else 0.0),
+    })
+    if result.fld is not None:
+        writers.write_fld(out_dir, aux, result.fld.pmf())
+    writers.write_vestigial_bias_vectors(out_dir, aux)
+    if result.eq_classes is not None:
+        writers.write_ambig_info(out_dir, aux, n_valid, result.eq_classes)
+        if dump_eq:
+            writers.write_eq_classes(out_dir, aux, result.names,
+                                     result.eq_classes,
+                                     dump_weights=dump_eq_weights,
+                                     eff_lens=result.eff_lens)

@@ -1,0 +1,102 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card. Every test here needs an NVIDIA GPU and skips without one.
+The file imports nothing of JAX, so it also runs on a GPU machine that
+has no JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
+
+(--noconftest leaves out tests/conftest.py, which sets up JAX for the
+other test files.) Banded-DP scores are small integer sums in float32,
+so kernel and plain version must agree exactly.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from salmon_tpu_torch.mapping import align
+from salmon_tpu_torch.mapping.pipeline import _SEQ4_SHIFT
+
+MA, MP, GO, GE = 2.0, -4.0, 6.0, 2.0
+BW = 15
+MODES = [dict(), dict(softclip=True), dict(softclip_overhangs=True),
+         dict(softclip=True, softclip_overhangs=True)]
+MODE_IDS = ["plain", "softclip", "overhangs", "softclip+overhangs"]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU "
+                    "mode (python3 chip_smoke.py also runs it on the card)")
+    return torch.device("cuda")
+
+
+def dp_problems(seed: int, off_dtype, dev, n_txps=30, L=128, P=2000):
+    """Banded-DP arguments for P problems over random transcripts with N
+    bases: ragged reads left- or flip-aligned, the first quarter placed
+    within 3 bases of where its read row came from, the rest at random
+    reference starts on, near and off the transcript ends, reading rows
+    shared between problems (two ids out of range, which clip). Returns
+    (args, kwargs) of banded_scores_indexed."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(150, 1500, n_txps)
+    off = np.concatenate([[0], np.cumsum(lens)])
+    seq = rng.integers(0, 4, off[-1]).astype(np.uint8)
+    seq[rng.random(seq.shape[0]) < 0.005] = 4
+    words, _ = align.pack_seq4(seq, lead_pad=_SEQ4_SHIFT)
+    NR = P // 4
+    reads = rng.integers(0, 4, (NR, L)).astype(np.uint8)
+    reads[rng.random((NR, L)) < 0.02] = 4
+    t = rng.integers(0, n_txps, P)
+    ids = np.concatenate([np.arange(NR), rng.integers(0, NR, P - NR)])
+    ids = ids.astype(np.int32)
+    rl = rng.integers(30, L + 1, P).astype(np.int32)
+    rs = np.where(rng.random(P) < 0.5, L - rl, 0).astype(np.int32)
+    rb = rng.integers(-60, 1500, P).astype(np.int32)
+    for p in range(NR):
+        b = int(rng.integers(0, max(lens[t[p]] - rl[p], 1)))
+        src = seq[off[t[p]] + b: off[t[p]] + b + rl[p]]
+        reads[ids[p], rs[p]:rs[p] + src.shape[0]] = src
+        rb[p] = b - rs[p] + int(rng.integers(-3, 4))
+    ids[-2:] = (-1, NR)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    args = (put(reads), put(ids), put(rl), put(rb),
+            put(lens[t].astype(np.int32)), None, put(off[t].astype(off_dtype)),
+            BW, MA, MP, GO, GE)
+    kwargs = dict(seq_words=put(words.view(np.int32)),
+                  seq_words_shift=_SEQ4_SHIFT, read_starts=put(rs))
+    return args, kwargs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("off_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
+def test_banded_dp_kernel_matches_plain(cuda, mode, off_dtype):
+    args, kwargs = dp_problems(11, off_dtype, cuda)
+    kwargs.update(mode)
+    before = align.BANDED_DP.launches
+    got = align.banded_scores_indexed(*args, **kwargs)
+    want = align._banded_scores_plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert align.BANDED_DP.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    assert (want > 0).float().mean().item() > 0.2   # a quarter align
+
+
+@pytest.mark.cuda
+def test_banded_dp_kernel_rejects_what_it_does_not_take(cuda):
+    args, kwargs = dp_problems(12, np.int32, cuda, P=64)
+    before = align.BANDED_DP.launches
+    with pytest.raises(NotImplementedError, match="bandwidth"):
+        align.banded_scores_indexed(*args[:7], 80, *args[8:], **kwargs)
+    with pytest.raises(TypeError, match="read_ids"):
+        align.banded_scores_indexed(args[0], args[1].long(), *args[2:],
+                                    **kwargs)
+    with pytest.raises(ValueError, match="read_lens"):
+        align.banded_scores_indexed(*args[:2], args[2][:-1], *args[3:],
+                                    **kwargs)
+    assert align.BANDED_DP.launches == before
