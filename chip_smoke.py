@@ -7,22 +7,34 @@ Phases, one line each; any failure raises and exits non-zero:
   1. device  — a CUDA device is visible; nvidia-smi name and power limit
   2. build   — nvcc builds every kernel source of the path, in parallel
   3. kernels — each kernel against its plain torch version on the card,
-               at the main path's shapes, in every mode; times and bound
+               in every mode: banded_dp at the main DP's band (15) and
+               shapes, at the rescue's band (80) and shapes, and at
+               bands 40 and 7; times and bound for each
   4. golden  — `index` + `quant -l IU` of tests/data through the CLI,
-               held to tests/data/golden like tests/test_golden.py
+               held to tests/data/golden like tests/test_golden.py; then
+               single-end `quant -l A -r reads_1.fastq` on the card, held
+               to the truth in the read names and to the same command
+               run by the port on the CPU; and --recoverOrphans on 32
+               pairs whose right mates only the rescue can place
   5. scale   — `index` + `quant -l A` of a 5,000-transcript /
-               200,000-pair synthetic set (scripts/make_synthetic_txome.py):
-               fragments/s, mapping rate, DP launches per batch, and
-               Spearman of NumReads against the truth in the read names
-The kernels JSON line and the card's name and power limit come before
-the last line, which is {"ok": true, "device": {...}}. Imports nothing
-of JAX or salmon_tpu. --profile adds a phase 6: where the time of the
-scale set's quant goes, by quantify's own clocks and a torch.profiler
-breakdown of a few batches.
+               200,000-pair synthetic set (scripts/make_synthetic_txome.py)
+               in three modes: paired, single-end (-r reads_1) and paired
+               with --recoverOrphans. For each: fragments (reads) per
+               second, mapping rate, DP launches per batch and band, and
+               Spearman of NumReads against the truth in the read names,
+               gated at the JAX package's value minus 0.01
+Every mode runs through the CLI with the launch counts set to 0 just
+before it and read just after. The kernels JSON line (one record per
+band the main paths run: 15, and 80 for the rescue) and the card's name
+and power limit come before the last line, which is {"ok": true,
+"device": {...}}. Imports nothing of JAX or salmon_tpu. --profile adds
+a phase 6: where the time of the paired scale quant goes, by
+quantify's own clocks and a torch.profiler breakdown of a few batches.
 """
 
 from __future__ import annotations
 
+import collections
 import gzip
 import json
 import math
@@ -38,19 +50,34 @@ DATA = os.path.join(REPO, "tests", "data")
 # Spearman of quant.sf NumReads against the simulated truth counts that
 # the JAX package reached on the same 5,000-transcript / 200,000-pair set
 # (python -m salmon_tpu index -k 31, then quant -l A at defaults, JAX on
-# the CPU; the set from scripts/make_synthetic_txome.py as in phase 5).
-# The port must come within 0.01 of it.
+# the CPU; the set from scripts/make_synthetic_txome.py as in phase 5;
+# tools/jax_reference_5k.py reruns it). The port must come within 0.01
+# of each: paired, single-end (-r reads_1) and paired --recoverOrphans.
 JAX_SPEARMAN_5K = 0.9993151108089
+JAX_SPEARMAN_5K_SINGLE = 0.9922372116579615
+JAX_SPEARMAN_5K_RESCUE = 0.9992805249685751
+# num_orphans_rescued of that --recoverOrphans run, and how far the port
+# may be from it (5 %): the rescue probes an orphan's first hit, and
+# where orphan hits tie on score the two packages may rank another one
+# first (ROADMAP queue 3)
+JAX_RESCUED_5K = 197
+RESCUED_SLACK = 10
 SCALE_TXPS = 5000
 SCALE_PAIRS = 200_000
+BATCH = 4096            # reads per batch (the default --readBatchSize)
+MAIN_BW, RESCUE_BW = 15, 80
 
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-# fp32 add/max operations per band cell and read row of the DP
-# (csrc/banded_dp.cu inner loop; softclip adds one max)
-DP_OPS_PER_CELL = 20
+# fp32 add/max operations per band cell and read row that the DP's
+# function needs: F 4, H 2, X 1, E 2, running max 1, and 2 for the
+# gap-in-reference prefix done as a running max, E[d] = max(X[d],
+# E[d-1] - ge); softclip adds one max. The kernel's Kogge-Stone scan
+# spends 2 per step (2 ceil(log2 B) per cell): that is its choice of
+# algorithm, not work the function requires, so the bound leaves it out
+DP_OPS_PER_CELL = 12
 
 
 def phase(name: str, msg: str) -> None:
@@ -96,19 +123,22 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def dp_inputs(seed: int, ragged: bool, off64: bool, dev="cuda"):
+def dp_inputs(seed: int, ragged: bool, off64: bool, P: int = 16384,
+              jitter: int = 3, dev="cuda"):
     """One batch of DP problems shaped like the main path's: R = 4096
     fragments of 100 bp in a 128-column batch, both mates and both
     orientations as read rows (reverse complements flipped to the right
-    edge), 2 x R x 2 problems placed near their true transcript
-    positions over an 8.3 Mb random transcriptome."""
+    edge), P problems within `jitter` bases of their true transcript
+    positions over an 8.3 Mb random transcriptome. The main DP has
+    P = 2 x R x 2 = 16,384 and jitter 3; the rescue P = R / 4 = 1,024
+    and jitter 60 (its probes land within the band of 80)."""
     import numpy as np
     import torch
     from salmon_tpu_torch.mapping.align import pack_seq4
     from salmon_tpu_torch.mapping.pipeline import _SEQ4_SHIFT, _revcomp_flip
 
     rng = np.random.default_rng(seed)
-    R, L, P = 4096, 128, 16384
+    R, L = BATCH, 128
     lens = rng.integers(300, 3000, SCALE_TXPS)
     offs = np.concatenate([[0], np.cumsum(lens)])
     seq = rng.integers(0, 4, int(offs[-1])).astype(np.uint8)
@@ -137,7 +167,8 @@ def dp_inputs(seed: int, ragged: bool, off64: bool, dev="cuda"):
     st = np.where(var < 2, sl[row], sr[row])
     rl = np.where(var < 2, ll[row], lr[row]).astype(np.int32)
     rs = np.where(var % 2 == 1, L - rl, 0).astype(np.int32)
-    ref_base = (st - rs + rng.integers(-3, 4, P)).astype(np.int32)
+    ref_base = (st - rs + rng.integers(-jitter, jitter + 1, P)).astype(
+        np.int32)
     so = offs[t].astype(np.int64 if off64 else np.int32)
 
     def put(a):
@@ -150,18 +181,19 @@ def dp_inputs(seed: int, ragged: bool, off64: bool, dev="cuda"):
                 seq_words_shift=_SEQ4_SHIFT, read_starts=put(rs))
 
 
-def dp_bound_ms(inp: dict, softclip: bool) -> tuple[float, str]:
+def dp_bound_ms(inp: dict, bw: int, softclip: bool) -> tuple[float, str]:
     """Least time for the DP's work on this card: fp32 operations over
-    the active band cells, against the bytes each input must be read
-    (reads, per-problem vectors, each problem's 2-bit window) and the
-    scores written."""
+    the active band cells (B = 2 bw + 1 per read row, DP_OPS_PER_CELL
+    each), against the bytes each input must be read (reads,
+    per-problem vectors, each problem's 2-bit window) and the scores
+    written."""
     import torch
     L = inp["reads"].shape[1]
     P = inp["read_ids"].shape[0]
     rs, rl = inp["read_starts"].long(), inp["read_lens"].long()
     rows = (torch.clamp(rs + rl, max=L) - torch.clamp(rs, min=0)).clamp(
         min=0).sum().item()
-    B = 31
+    B = 2 * bw + 1
     ops = rows * B * (DP_OPS_PER_CELL + int(softclip))
     window_words = (L + B - 1 + 15) // 16 + 1
     nbytes = (inp["reads"].numel()
@@ -172,50 +204,104 @@ def dp_bound_ms(inp: dict, softclip: bool) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+# (band, problems, placement jitter, cases); a case is (name, kernel
+# options, ragged read lengths, int64 transcript offsets). The first
+# case of a band gives its record's times.
+DP_CASES = [
+    (MAIN_BW, 16384, 3, [
+        ("plain", dict(), False, False),
+        ("softclip", dict(softclip=True), False, False),
+        ("softclip_overhangs", dict(softclip_overhangs=True), False, False),
+        ("softclip+overhangs",
+         dict(softclip=True, softclip_overhangs=True), False, False),
+        ("ragged_starts_int64", dict(), True, True)]),
+    (RESCUE_BW, BATCH // 4, 60, [
+        ("plain", dict(), False, False),
+        ("softclip", dict(softclip=True), True, False),
+        ("softclip_overhangs", dict(softclip_overhangs=True), False, True),
+        ("softclip+overhangs",
+         dict(softclip=True, softclip_overhangs=True), True, True)]),
+    (40, 4096, 30, [
+        ("plain", dict(), True, False),
+        ("softclip", dict(softclip=True), False, True),
+        ("softclip_overhangs", dict(softclip_overhangs=True), True, True),
+        ("softclip+overhangs",
+         dict(softclip=True, softclip_overhangs=True), False, False)]),
+    (7, 16384, 3, [
+        ("plain", dict(), False, True),
+        ("softclip", dict(softclip=True), True, True),
+        ("softclip_overhangs", dict(softclip_overhangs=True), False, False),
+        ("softclip+overhangs",
+         dict(softclip=True, softclip_overhangs=True), True, False)]),
+]
+
+
 def kernel_phase() -> dict:
+    """banded_dp against its plain version at every band of DP_CASES.
+    Returns {band: record} for the bands the main paths run."""
     import torch
     from salmon_tpu_torch.mapping import align
 
-    modes = [("plain", dict(), False, False),
-             ("softclip", dict(softclip=True), False, False),
-             ("softclip_overhangs", dict(softclip_overhangs=True), False,
-              False),
-             ("ragged_starts_int64", dict(), True, True)]
-    rec = {"name": "banded_dp", "route": "cuda",
-           "source": "salmon_tpu_torch/csrc/banded_dp.cu",
-           "replaces": "salmon_tpu/mapping/align.py:292",
-           "max_abs_err": 0.0, "library_ms": None}
-    # no single PyTorch call computes a banded DP: library_ms stays null
-    for i, (name, kw, ragged, off64) in enumerate(modes):
-        inp = dp_inputs(100 + i, ragged, off64)
-        args = (inp["reads"], inp["read_ids"], inp["read_lens"],
-                inp["ref_base"], inp["txp_lens"], None, inp["seq_off"], 15,
-                2.0, -4.0, 6.0, 2.0)
-        kw = dict(kw, seq_words=inp["seq_words"],
-                  seq_words_shift=inp["seq_words_shift"],
-                  read_starts=inp["read_starts"])
-        got = align.banded_scores_indexed(*args, **kw)
-        want = align._banded_scores_plain(*args, **kw)
-        torch.cuda.synchronize()
-        ok = want > -1e8
-        err = (got[ok] - want[ok]).abs().max().item() if ok.any() else 0.0
-        n_diff = int((got != want).sum())
-        if err != 0.0 or n_diff:
-            raise AssertionError(f"banded_dp {name}: max |kernel - plain| "
-                                 f"{err} over scored problems, {n_diff} "
-                                 "problems differ")
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        ms = _cuda_ms(lambda: align.banded_scores_indexed(*args, **kw), 20)
-        plain_ms = _cuda_ms(lambda: align._banded_scores_plain(*args, **kw),
-                            3)
-        bound, by = dp_bound_ms(inp, kw.get("softclip", False))
-        phase("kernels", f"banded_dp {name}: exact on {int(ok.sum())}/"
-              f"{ok.numel()} scored problems; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({by})")
-        if name == "plain":
-            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                       bound_by=by)
-    return rec
+    records = {}
+    seed = 100
+    for bw, P, jitter, cases in DP_CASES:
+        # no single PyTorch call computes a banded DP: library_ms is null
+        rec = {"name": f"banded_dp_bw{bw}", "route": "cuda",
+               "source": "salmon_tpu_torch/csrc/banded_dp.cu",
+               "replaces": "salmon_tpu/mapping/align.py:292",
+               "max_abs_err": 0.0, "library_ms": None}
+        for name, kw, ragged, off64 in cases:
+            seed += 1
+            inp = dp_inputs(seed, ragged, off64, P=P, jitter=jitter)
+            args = (inp["reads"], inp["read_ids"], inp["read_lens"],
+                    inp["ref_base"], inp["txp_lens"], None, inp["seq_off"],
+                    bw, 2.0, -4.0, 6.0, 2.0)
+            kw = dict(kw, seq_words=inp["seq_words"],
+                      seq_words_shift=inp["seq_words_shift"],
+                      read_starts=inp["read_starts"])
+            got = align.banded_scores_indexed(*args, **kw)
+            want = align._banded_scores_plain(*args, **kw)
+            torch.cuda.synchronize()
+            ok = want > -1e8
+            err = (got[ok] - want[ok]).abs().max().item() if ok.any() \
+                else 0.0
+            n_diff = int((got != want).sum())
+            if err != 0.0 or n_diff:
+                raise AssertionError(
+                    f"banded_dp bw {bw} {name}: max |kernel - plain| {err} "
+                    f"over scored problems, {n_diff} problems differ")
+            # half the problems read a mate in the orientation it was not
+            # drawn in, so about half align
+            aligned = float((want > 0).float().mean())
+            if aligned < 0.3:
+                raise AssertionError(f"banded_dp bw {bw} {name}: only "
+                                     f"{aligned} of the problems align")
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            ms = _cuda_ms(lambda: align.banded_scores_indexed(*args, **kw),
+                          20)
+            plain_ms = _cuda_ms(
+                lambda: align._banded_scores_plain(*args, **kw), 3)
+            bound, by = dp_bound_ms(inp, bw, kw.get("softclip", False))
+            phase("kernels", f"banded_dp bw {bw} {name} (P = {P}): exact "
+                  f"on {int(ok.sum())}/{ok.numel()} problems, "
+                  f"{aligned:.3f} aligned; kernel {ms!r} ms, plain "
+                  f"{plain_ms!r} ms, bound {bound!r} ms ({by})")
+            if "ms" not in rec:
+                rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                           bound_by=by)
+        if bw in (MAIN_BW, RESCUE_BW):
+            records[bw] = rec
+    return records
+
+
+def read_truth(reads_1: str) -> collections.Counter:
+    """Reads per true transcript, from read names num:txp:pos:end."""
+    truth = collections.Counter()
+    with open(reads_1) as fh:
+        for i, ln in enumerate(fh):
+            if i % 4 == 0:
+                truth[ln[1:].split(":")[1]] += 1
+    return truth
 
 
 def _parse_sf(lines):
@@ -227,20 +313,48 @@ def _parse_sf(lines):
     return rows
 
 
-def golden_phase(tmp: str) -> None:
+def spearman(quant_sf: str, truth) -> float:
+    """Spearman of quant.sf NumReads against the truth counts, over
+    every transcript of quant.sf."""
     import numpy as np
+    from scipy.stats import spearmanr
+    with open(quant_sf) as fh:
+        rows = _parse_sf(fh.readlines())
+    names = list(rows)
+    num_reads = np.array([rows[n][2] for n in names])
+    assert np.isfinite(num_reads).all()
+    assert np.isfinite([rows[n][0] for n in names]).all()
+    return float(spearmanr(num_reads, [truth.get(n, 0)
+                                       for n in names]).statistic)
+
+
+def run_quant(argv: list, device=None) -> tuple[dict, float]:
+    """One `quant` through the CLI with the banded_dp launch counts set
+    to 0 just before it. Returns (launches by band, seconds)."""
+    import torch
     from salmon_tpu_torch import cli
     from salmon_tpu_torch.mapping.align import BANDED_DP
+
+    BANDED_DP.reset()
+    t0 = time.perf_counter()
+    assert cli.main(["quant", *argv, "-q"], device=device) == 0
+    if device is None:
+        torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    return dict(BANDED_DP.by_shape), sec
+
+
+def golden_phase(tmp: str) -> str:
+    import numpy as np
+    from salmon_tpu_torch import cli
 
     idx, out = os.path.join(tmp, "g_idx"), os.path.join(tmp, "g_quant")
     assert cli.main(["index", "-t", os.path.join(DATA, "transcripts.fasta"),
                      "-i", idx, "-k", "31"]) == 0
-    BANDED_DP.launches = 0
-    assert cli.main(["quant", "-i", idx, "-l", "IU",
-                     "-1", os.path.join(DATA, "reads_1.fastq"),
-                     "-2", os.path.join(DATA, "reads_2.fastq"),
-                     "-o", out, "-q"]) == 0
-    launches = BANDED_DP.launches
+    launches, _ = run_quant(["-i", idx, "-l", "IU",
+                             "-1", os.path.join(DATA, "reads_1.fastq"),
+                             "-2", os.path.join(DATA, "reads_2.fastq"),
+                             "-o", out])
     with gzip.open(os.path.join(DATA, "golden", "quant.sf.gz"), "rt") as fh:
         want = _parse_sf(fh.readlines())
     with open(os.path.join(out, "quant.sf")) as fh:
@@ -256,22 +370,104 @@ def golden_phase(tmp: str) -> None:
               "num_assigned_fragments", "ISF", "ISR", "OSF", "OSR", "MSF",
               "MSR"):
         assert gj[k] == wj[k], (k, gj[k], wj[k])
-    assert launches > 0, "the golden quant never launched banded_dp"
+    assert launches.get(MAIN_BW, 0) > 0 and set(launches) == {MAIN_BW}, \
+        f"the golden quant launched banded_dp {launches}"
     phase("golden", f"quant.sf within rtol 5e-3 / atol 0.5 of the fixture "
           f"(max |diff| {np.abs(g - w).max():.4f}); lib_format_counts "
           f"exact; banded_dp launches {launches}")
+    return idx
 
 
-def _spearman(a, b) -> float:
-    from scipy.stats import spearmanr
-    return float(spearmanr(a, b).statistic)
+def golden_single_phase(idx: str, tmp: str) -> None:
+    """Single-end quant of the sample's first reads on the card: held to
+    the truth in the read names (tests/test_library_modes.py's gate) and
+    to the port's own CPU run of the same command."""
+    import numpy as np
+
+    reads = os.path.join(DATA, "reads_1.fastq")
+    outs = {d: os.path.join(tmp, f"g_single_{d}") for d in ("cuda", "cpu")}
+    launches, sec = run_quant(["-i", idx, "-l", "A", "-r", reads,
+                               "-o", outs["cuda"]])
+    run_quant(["-i", idx, "-l", "A", "-r", reads, "-o", outs["cpu"]],
+              device="cpu")
+    sf = {}
+    for d, out in outs.items():
+        with open(os.path.join(out, "quant.sf")) as fh:
+            sf[d] = _parse_sf(fh.readlines())
+    assert set(sf["cuda"]) == set(sf["cpu"])
+    g = np.array([sf["cuda"][k] for k in sorted(sf["cpu"])])
+    w = np.array([sf["cpu"][k] for k in sorted(sf["cpu"])])
+    np.testing.assert_allclose(g, w, rtol=5e-3, atol=0.5)
+    rho = spearman(os.path.join(outs["cuda"], "quant.sf"),
+                   read_truth(reads))
+    meta = json.load(open(os.path.join(outs["cuda"], "aux_info",
+                                       "meta_info.json")))
+    assert rho >= 0.97, rho
+    assert meta["library_types"] in (["U"], ["SF"], ["SR"]), meta
+    assert launches.get(MAIN_BW, 0) > 0 and set(launches) == {MAIN_BW}, \
+        f"the single-end quant launched banded_dp {launches}"
+    phase("golden", f"single-end -r reads_1.fastq on the card: Spearman "
+          f"vs truth {rho!r} (gate 0.97), library {meta['library_types']}, "
+          f"mapped {meta['percent_mapped']!r}%, quant.sf within rtol 5e-3 "
+          f"/ atol 0.5 of the port's CPU run (max |diff| "
+          f"{np.abs(g - w).max():.4f}); {sec:.2f} s; banded_dp launches "
+          f"{launches}")
+
+
+def golden_rescue_phase(idx: str, tmp: str) -> None:
+    """--recoverOrphans on 32 pairs of the sample transcripts whose right
+    mate has a mismatch every 12 bases: no k = 31 seed survives, but the
+    mate aligns above minScoreFraction, so only the rescue pairs them
+    (tests/test_quant_extras.py::test_orphan_rescue). On the card and in
+    the port's CPU run: the same count rescued, at least 25."""
+    import numpy as np
+    from salmon_tpu_torch.index.builder import load_index
+
+    index = load_index(idx)
+    rng = np.random.default_rng(0)
+    RL, FL = 76, 250
+    paths = [os.path.join(tmp, f"rescue_{e}.fastq") for e in (1, 2)]
+    with open(paths[0], "w") as f1, open(paths[1], "w") as f2:
+        for i in range(32):
+            codes = index.transcript_codes(int(rng.integers(
+                0, index.num_valid_targets)))
+            start = int(rng.integers(0, codes.shape[0] - FL))
+            left = codes[start:start + RL]
+            right = codes[start + FL - RL:start + FL][::-1]
+            right = np.where(right < 4, 3 - right, 4)
+            right[5::12] = (right[5::12] + 1) % 4
+            for fh, c in ((f1, left), (f2, right)):
+                fh.write(f"@p{i}\n{''.join('ACGTN'[x] for x in c)}\n+\n"
+                         f"{'I' * RL}\n")
+    meta, sf = {}, {}
+    for device in (None, "cpu"):
+        out = os.path.join(tmp, f"g_rescue_{device or 'cuda'}")
+        launches, _ = run_quant(["-i", idx, "-l", "IU", "-1", paths[0],
+                                 "-2", paths[1], "--recoverOrphans",
+                                 "-o", out], device=device)
+        if device is None:
+            card_launches = launches
+        meta[device] = json.load(open(os.path.join(out, "aux_info",
+                                                   "meta_info.json")))
+        with open(os.path.join(out, "quant.sf")) as fh:
+            sf[device] = _parse_sf(fh.readlines())
+    rescued = meta[None]["num_orphans_rescued"]
+    assert rescued == meta["cpu"]["num_orphans_rescued"] >= 25, \
+        (rescued, meta["cpu"]["num_orphans_rescued"])
+    g = np.array([sf[None][k] for k in sorted(sf["cpu"])])
+    w = np.array([sf["cpu"][k] for k in sorted(sf["cpu"])])
+    np.testing.assert_allclose(g, w, rtol=5e-3, atol=0.5)
+    assert card_launches == {MAIN_BW: 1, RESCUE_BW: 1}, card_launches
+    phase("golden", f"--recoverOrphans on 32 pairs with unseedable right "
+          f"mates: {rescued} rescued on the card and on the CPU (gate "
+          f"25); banded_dp launches {card_launches}")
 
 
 def scale_phase(tmp: str) -> tuple:
-    import numpy as np
-    import torch
+    """The three modes of the 5k / 200k set. Returns (launches by band
+    of the paired run, launches by band of the --recoverOrphans run, the
+    set's directory)."""
     from salmon_tpu_torch import cli
-    from salmon_tpu_torch.mapping.align import BANDED_DP
 
     syn = os.path.join(tmp, "syn")
     t0 = time.perf_counter()
@@ -281,44 +477,50 @@ def scale_phase(tmp: str) -> tuple:
                     "--n-pairs", str(SCALE_PAIRS)], check=True,
                    capture_output=True, timeout=600)
     t_gen = time.perf_counter() - t0
-    idx, out = os.path.join(syn, "idx"), os.path.join(syn, "quant")
+    idx = os.path.join(syn, "idx")
     t0 = time.perf_counter()
     assert cli.main(["index", "-t", os.path.join(syn, "txome.fasta"),
                      "-i", idx, "-k", "31"]) == 0
     t_index = time.perf_counter() - t0
-    r1, r2 = (os.path.join(syn, f"reads_{i}.fastq") for i in (1, 2))
-    BANDED_DP.launches = 0
-    t0 = time.perf_counter()
-    assert cli.main(["quant", "-i", idx, "-l", "A", "-1", r1, "-2", r2,
-                     "-o", out, "-q"]) == 0
-    torch.cuda.synchronize()
-    t_quant = time.perf_counter() - t0
-    launches = BANDED_DP.launches
-
-    meta = json.load(open(os.path.join(out, "aux_info", "meta_info.json")))
-    with open(os.path.join(out, "quant.sf")) as fh:
-        rows = [ln.rstrip("\n").split("\t") for ln in fh.readlines()[1:]]
-    names = [r[0] for r in rows]
-    num_reads = np.array([float(r[4]) for r in rows])
-    assert len(rows) == SCALE_TXPS and np.isfinite(num_reads).all()
-    assert np.isfinite([float(r[2]) for r in rows]).all()
-    truth = dict.fromkeys(names, 0)
-    with open(r1) as fh:
-        for i, ln in enumerate(fh):
-            if i % 4 == 0:
-                truth[ln[1:].split(":")[1]] += 1
-    rho = _spearman(num_reads, [truth[n] for n in names])
-    n_batches = math.ceil(SCALE_PAIRS / 4096)
-    assert launches == n_batches, (launches, n_batches)
-    assert meta["num_processed"] == SCALE_PAIRS
-    assert rho >= JAX_SPEARMAN_5K - 0.01, (rho, JAX_SPEARMAN_5K)
     phase("scale", f"{SCALE_TXPS} txps / {SCALE_PAIRS} pairs: data "
-          f"{t_gen:.1f} s, index {t_index:.1f} s, quant {t_quant!r} s = "
-          f"{SCALE_PAIRS / t_quant!r} frags/s; mapped "
-          f"{meta['percent_mapped']!r}%; banded_dp launches {launches} "
-          f"for {n_batches} batches; NumReads Spearman vs truth "
-          f"{rho!r} (JAX package on the CPU: {JAX_SPEARMAN_5K})")
-    return launches, syn
+          f"{t_gen:.1f} s, index {t_index:.1f} s")
+    r1, r2 = (os.path.join(syn, f"reads_{i}.fastq") for i in (1, 2))
+    truth = read_truth(r1)
+    n_batches = math.ceil(SCALE_PAIRS / BATCH)
+    modes = [
+        ("paired", ["-1", r1, "-2", r2], JAX_SPEARMAN_5K,
+         {MAIN_BW: n_batches}),
+        ("single-end", ["-r", r1], JAX_SPEARMAN_5K_SINGLE,
+         {MAIN_BW: n_batches}),
+        ("recoverOrphans", ["-1", r1, "-2", r2, "--recoverOrphans"],
+         JAX_SPEARMAN_5K_RESCUE, {MAIN_BW: n_batches, RESCUE_BW: n_batches}),
+    ]
+    runs = {}
+    for mode, flags, jax_rho, want_launches in modes:
+        out = os.path.join(syn, f"quant_{mode}")
+        launches, sec = run_quant(["-i", idx, "-l", "A", *flags,
+                                   "-o", out])
+        meta = json.load(open(os.path.join(out, "aux_info",
+                                           "meta_info.json")))
+        rho = spearman(os.path.join(out, "quant.sf"), truth)
+        assert meta["num_processed"] == SCALE_PAIRS, meta["num_processed"]
+        assert launches == want_launches, (mode, launches, want_launches)
+        assert rho >= jax_rho - 0.01, (mode, rho, jax_rho)
+        unit = "reads" if mode == "single-end" else "frags"
+        extra = ""
+        if mode == "recoverOrphans":
+            rescued = meta["num_orphans_rescued"]
+            assert abs(rescued - JAX_RESCUED_5K) <= RESCUED_SLACK, \
+                (rescued, JAX_RESCUED_5K)
+            extra = (f"; num_orphans_rescued {rescued} (JAX package on the "
+                     f"CPU: {JAX_RESCUED_5K})")
+        phase("scale", f"{mode}: quant {sec!r} s = {SCALE_PAIRS / sec!r} "
+              f"{unit}/s; mapped {meta['percent_mapped']!r}%; banded_dp "
+              f"launches {launches} for {n_batches} batches; NumReads "
+              f"Spearman vs truth {rho!r} (JAX package on the CPU: "
+              f"{jax_rho}){extra}")
+        runs[mode] = launches
+    return runs["paired"], runs["recoverOrphans"], syn
 
 
 def profile_phase(syn: str, n_batches: int = 6) -> None:
@@ -402,16 +604,21 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import torch
     build_phase()
-    rec = kernel_phase()
+    records = kernel_phase()
     with tempfile.TemporaryDirectory() as tmp:
-        golden_phase(tmp)
-        rec["launches"], syn = scale_phase(tmp)
+        idx = golden_phase(tmp)
+        golden_single_phase(idx, tmp)
+        golden_rescue_phase(idx, tmp)
+        paired, rescue, syn = scale_phase(tmp)
+        records[MAIN_BW]["launches"] = paired[MAIN_BW]
+        records[RESCUE_BW]["launches"] = rescue[RESCUE_BW]
         if "--profile" in sys.argv[1:]:
             profile_phase(syn)
     order = ["name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms"]
-    print(json.dumps({"kernels": [{k: rec[k] for k in order}]}))
+    print(json.dumps({"kernels": [{k: rec[k] for k in order}
+                                  for rec in records.values()]}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,8 @@
 Counterpart of salmon_tpu/cli.py (reference src/cli/Salmon.cpp:161-327
 and src/cli/ProgramOptionsGenerator.cpp). The flag surface is the JAX
 package's, so a command line switches by replacing the module name.
-The port runs `index` and paired-end mapping-mode `quant` on a CUDA
-device; every flag whose behaviour it does not have yet raises
+The port runs `index` and mapping-mode `quant` (paired-end -1/-2 or
+single-end -r reads) on a CUDA device; every flag whose behaviour it does not have yet raises
 NotImplementedError naming its ROADMAP item. There is no online
 version check.
 """
@@ -409,8 +409,6 @@ def cmd_index(args) -> int:
 
 # (flag given, ROADMAP item) for quant flags the port does not have yet
 _UNPORTED = (
-    ("unmatedReads", "single-end reads are ROADMAP queue 1 #10"),
-    ("recoverOrphans", "--recoverOrphans is ROADMAP queue 1 #10"),
     ("alignments", "alignment mode (-a) is ROADMAP queue 1 #14"),
     ("eqclasses", "eq-class mode (-e) is ROADMAP queue 1 #14"),
     ("writeMappings", "--writeMappings is ROADMAP queue 1 #17"),
@@ -428,8 +426,8 @@ def cmd_quant(args, device=None) -> int:
     if not args.index:
         logger.error("mapping-based mode requires -i/--index")
         return 1
-    if not (args.mates1 and args.mates2):
-        logger.error("provide -1/-2 paired reads")
+    if not (args.mates1 and args.mates2) and not args.unmatedReads:
+        logger.error("provide -1/-2 (paired) or -r (single-end) reads")
         return 1
     if device is None:
         import torch
@@ -445,7 +443,8 @@ def cmd_quant(args, device=None) -> int:
     # up-front input checks (ReadLibrary::checkValid role,
     # ReadLibrary.hpp:130-170): fail before loading the index
     import stat as _stat
-    for path in args.mates1 + args.mates2:
+    for path in ((args.mates1 or []) + (args.mates2 or [])
+                 + (args.unmatedReads or [])):
         try:
             st = os.stat(path)
         except OSError as e:
@@ -455,7 +454,8 @@ def cmd_quant(args, device=None) -> int:
             logger.error("input %s is neither a regular file nor a "
                          "FIFO", path)
             return 1
-    if len(args.mates1) != len(args.mates2):
+    if args.mates1 and args.mates2 and \
+            len(args.mates1) != len(args.mates2):
         logger.error("-1 and -2 must list the same number of files "
                      "(%d vs %d)", len(args.mates1), len(args.mates2))
         return 1
@@ -468,7 +468,8 @@ def cmd_quant(args, device=None) -> int:
     opts = _opts_from_args(args)
     index = load_index(args.index)
     try:
-        result = quantify(index, args.libType, args.mates1, args.mates2,
+        result = quantify(index, args.libType,
+                          args.mates1 or args.unmatedReads, args.mates2,
                           opts=opts, progress=not args.quiet,
                           device=device)
     except InsufficientAssignedFragments as e:

@@ -11,18 +11,29 @@
 //   X     = Kogge-Stone max-plus prefix of Hn - go      gap in reference
 //   H[d]  = max(Hn[d], X[d-1] - ge)  (softclip: max(H, 0))
 //
-// over band offsets d in [-bw, bw] (B = 2*bw + 1 lanes), for every read
+// over band offsets d in [-bw, bw] (B = 2*bw + 1 cells), for every read
 // row in [read_start, read_start + read_len); score = max_d H (softclip:
 // max over rows of max_d H).
 //
-// Design for the H100. One warp per problem: lane d holds band offset d,
-// so H, F and the running max live in registers, the d+1 shift is one
-// __shfl_down_sync and the prefix is five __shfl_up_sync steps in the
-// same association order as the plain version (the float results match
-// exactly, NEG saturation included). Each warp first gathers its read
-// row (by read_id) and decodes its reference window from the 2-bit words
-// into shared memory (code 5 outside the transcript), so no (P, W)
-// window tensor ever reaches device memory.
+// Design for the H100. One warp per problem, J = ceil(B / 32) cells per
+// lane (template parameter, 1..8, so bw <= 127). Cells are interleaved:
+// register j of lane l holds band offset d = l + 32 j, and cells at
+// d >= B stay NEG. H, F and the running max live in registers. Every
+// shift by s < 32 band cells is one rotation __shfl_sync per register,
+// lanes below s taking the rotated value of register j - 1; a shift by
+// a multiple of 32 is a register move. The d+1 shift of F and H, the
+// Kogge-Stone prefix (steps s = 1, 2, 4, ... < B) and the final d-1
+// shift of E all read only the previous step's values and keep the plain
+// version's association order, so the float results match exactly, NEG
+// saturation included. With one register (B <= 31) the shifts are plain
+// __shfl_down_sync / __shfl_up_sync, lane 31 lying outside the band.
+// The bands the main paths run (kFixedBands) are compiled with B known,
+// so the prefix steps need no runtime test; other bands take B at run
+// time, which costs time (PERF.md).
+// Each warp first gathers its read row (by read_id) and decodes its
+// reference window from the 2-bit words into shared memory (code 5
+// outside the transcript), so no (P, W) window tensor ever reaches
+// device memory.
 //
 // What bounds it: per band cell a row costs ~20 fp32 add/max operations
 // plus shuffles, and a main-path batch has ~5e7 cells against a few MB
@@ -39,10 +50,44 @@ namespace {
 constexpr float kNeg = -1e9f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarpsPerBlock = 4;
+constexpr int kMaxCellsPerLane = 8;
+// largest band half-width: B = 2 bw + 1 cells fill at most 8 per lane
+// (salmon_tpu_torch/mapping/align.py MAX_KERNEL_BANDWIDTH)
+constexpr int kMaxBandwidth = (32 * kMaxCellsPerLane - 1) / 2;
+// Bands compiled with B fixed: the main DP's default and the rescue's
+// (salmon_tpu_torch/constants.py dp_bandwidth, rescue_bandwidth;
+// tests/test_torch_kernels.py holds this list to those defaults).
+constexpr int kFixedBands[] = {15, 80};
+
+constexpr int cells_per_lane(int bw) { return (2 * bw + 1 + 31) / 32; }
+static_assert(cells_per_lane(kFixedBands[0]) <= kMaxCellsPerLane &&
+                  cells_per_lane(kFixedBands[1]) <= kMaxCellsPerLane,
+              "a fixed band is wider than the kernel takes");
 
 __host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
 
-template <int BW>
+// out[j] at lane l = the cell s band offsets below (d - s), NEG below
+// d = 0, for 0 < s < 32.
+template <int J>
+__device__ __forceinline__ void shift_up(const float (&v)[J], float (&out)[J],
+                                         int s, int lane) {
+  if constexpr (J == 1) {
+    const float u = __shfl_up_sync(kFull, v[0], s);
+    out[0] = lane >= s ? u : kNeg;
+    return;
+  }
+  float rot[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+    rot[j] = __shfl_sync(kFull, v[j], (lane - s) & 31);
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+    out[j] = lane >= s ? rot[j] : (j > 0 ? rot[j > 0 ? j - 1 : 0] : kNeg);
+}
+
+// J cells per lane; BWC > 0 fixes the band half-width at compile time
+// (the bands the main paths run), BWC = 0 takes it from `bw`
+template <int J, int BWC>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 banded_dp_kernel(const uint8_t* __restrict__ reads, int64_t n_reads, int L,
                  const int32_t* __restrict__ read_ids,
@@ -52,11 +97,11 @@ banded_dp_kernel(const uint8_t* __restrict__ reads, int64_t n_reads, int L,
                  const int32_t* __restrict__ read_starts,
                  const void* __restrict__ seq_off, int off64,
                  const uint32_t* __restrict__ words, int64_t n_word_rows,
-                 int words_shift, int P, float ma, float mp, float go,
-                 float ge, float oob_score, int softclip,
+                 int words_shift, int P, int bw, float ma, float mp,
+                 float go, float ge, float oob_score, int softclip,
                  float* __restrict__ out) {
-  constexpr int B = 2 * BW + 1;
-  static_assert(B <= 32, "one warp holds the band");
+  const int BW = BWC > 0 ? BWC : bw;
+  const int B = 2 * BW + 1;
   extern __shared__ uint8_t smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -95,64 +140,106 @@ banded_dp_kernel(const uint8_t* __restrict__ reads, int64_t n_reads, int L,
   __syncwarp();
 
   // --- the DP over the active rows ---------------------------------------
-  const bool in_band = lane < B;
+  bool in_band[J];
+  float H[J], F[J], Hm[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    in_band[j] = lane + 32 * j < B;
+    H[j] = in_band[j] ? 0.f : kNeg;  // cells past the band stay NEG
+    F[j] = kNeg;
+    Hm[j] = kNeg;
+  }
   const int rs = read_starts[p];
   const int i0 = rs > 0 ? rs : 0;
   const int i1 = min(rs + read_lens[p], L);
-  float H = in_band ? 0.f : kNeg;  // lanes past the band stay NEG
-  float F = kNeg;
-  float Hm = kNeg;
+  const int down = (lane + 1) & 31;
   for (int i = i0; i < i1; ++i) {
     const int rc = rd[i];
-    const int ref = in_band ? win[i + lane] : 5;
-    const float sub = ref >= 5 ? oob_score
-                               : ((rc == ref && rc < 4 && ref < 4) ? ma : mp);
-    const float Fd = __shfl_down_sync(kFull, F, 1);
-    const float Hd = __shfl_down_sync(kFull, H, 1);
-    const float Fn = fmaxf(Fd - ge, Hd - go - ge);
-    const float Hnf = fmaxf(H + sub, Fn);
-    float X = Hnf - go;
+    // d+1 shift of F and H: lane 31 takes lane 0 of register j + 1 (with
+    // one register, lane 31 lies outside every band and takes its own)
+    float Fr[J], Hr[J];
 #pragma unroll
-    for (int s = 1; s < B; s <<= 1) {
-      float up = __shfl_up_sync(kFull, X, s);
-      if (lane < s) up = kNeg;
-      X = fmaxf(X, up - ge * static_cast<float>(s));
+    for (int j = 0; j < J; ++j) {
+      Fr[j] = J == 1 ? __shfl_down_sync(kFull, F[j], 1)
+                     : __shfl_sync(kFull, F[j], down);
+      Hr[j] = J == 1 ? __shfl_down_sync(kFull, H[j], 1)
+                     : __shfl_sync(kFull, H[j], down);
     }
-    float E = __shfl_up_sync(kFull, X, 1);
-    if (lane == 0) E = kNeg;
-    float Hn = fmaxf(Hnf, E - ge);
-    if (softclip) Hn = fmaxf(Hn, 0.f);
-    if (in_band) {
-      H = Hn;
-      F = Fn;
-      Hm = fmaxf(Hm, Hn);
+    float Fn[J], Hnf[J], X[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int jn = j + 1 < J ? j + 1 : j;
+      const float Fd = lane < 31 || J == 1 ? Fr[j]
+                                           : (j + 1 < J ? Fr[jn] : kNeg);
+      const float Hd = lane < 31 || J == 1 ? Hr[j]
+                                           : (j + 1 < J ? Hr[jn] : kNeg);
+      const int ref = in_band[j] ? win[i + lane + 32 * j] : 5;
+      const float sub = ref >= 5 ? oob_score
+                                 : ((rc == ref && rc < 4 && ref < 4) ? ma
+                                                                     : mp);
+      Fn[j] = fmaxf(Fd - ge, Hd - go - ge);
+      Hnf[j] = fmaxf(H[j] + sub, Fn[j]);
+      X[j] = Hnf[j] - go;
+    }
+    // Kogge-Stone max-plus prefix, steps s = 1, 2, 4, ... while s < B
+    // (the trip count is a constant, so registers keep constant indices)
+#pragma unroll
+    for (int k = 0; (1 << k) < 32 * J; ++k) {
+      const int s = 1 << k;
+      if (s < B) {  // uniform across the warp
+        float up[J];
+        if (s < 32) {
+          shift_up<J>(X, up, s, lane);
+        } else {
+#pragma unroll
+          for (int j = 0; j < J; ++j)
+            up[j] = j >= s / 32 ? X[j >= s / 32 ? j - s / 32 : 0] : kNeg;
+        }
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+          X[j] = fmaxf(X[j], up[j] - ge * static_cast<float>(s));
+      }
+    }
+    float E[J];
+    shift_up<J>(X, E, 1, lane);
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      float Hn = fmaxf(Hnf[j], E[j] - ge);
+      if (softclip) Hn = fmaxf(Hn, 0.f);
+      if (in_band[j]) {
+        H[j] = Hn;
+        F[j] = Fn[j];
+        Hm[j] = fmaxf(Hm[j], Hn);
+      }
     }
   }
 
-  float v = in_band ? (softclip ? Hm : H) : __int_as_float(0xff800000);  // -inf
+  float v = __int_as_float(0xff800000);  // -inf
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+    if (in_band[j]) v = fmaxf(v, softclip ? Hm[j] : H[j]);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
   if (lane == 0) out[p] = v;
 }
 
-template <int BW>
+template <int J, int BWC>
 cudaError_t launch(const uint8_t* reads, int64_t n_reads, int L,
                    const int32_t* read_ids, const int32_t* read_lens,
                    const int32_t* ref_base, const int32_t* txp_lens,
                    const int32_t* read_starts, const void* seq_off,
                    int off64, const uint32_t* words, int64_t n_word_rows,
-                   int words_shift, int P, float ma, float mp, float go,
-                   float ge, float oob_score, int softclip, float* out,
-                   cudaStream_t stream) {
-  constexpr int B = 2 * BW + 1;
-  const int W = L + B - 1;
+                   int words_shift, int P, int BW, float ma, float mp,
+                   float go, float ge, float oob_score, int softclip,
+                   float* out, cudaStream_t stream) {
+  const int W = L + 2 * BW;
   const size_t smem =
       static_cast<size_t>(kWarpsPerBlock) * (round16(W) + round16(L));
   const int blocks = (P + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  banded_dp_kernel<BW><<<blocks, kWarpsPerBlock * 32, smem, stream>>>(
+  banded_dp_kernel<J, BWC><<<blocks, kWarpsPerBlock * 32, smem, stream>>>(
       reads, n_reads, L, read_ids, read_lens, ref_base, txp_lens,
-      read_starts, seq_off, off64, words, n_word_rows, words_shift, P, ma,
-      mp, go, ge, oob_score, softclip, out);
+      read_starts, seq_off, off64, words, n_word_rows, words_shift, P, BW,
+      ma, mp, go, ge, oob_score, softclip, out);
   return cudaGetLastError();
 }
 
@@ -171,23 +258,40 @@ int banded_dp_scores(const void* reads, int64_t n_reads, int L,
                      float ge, float oob_score, int softclip, void* out,
                      void* stream) {
   if (P <= 0) return 0;
-  if (L <= 0 || n_reads <= 0 || n_word_rows <= 0)
+  if (L <= 0 || n_reads <= 0 || n_word_rows <= 0 || bandwidth < 0 ||
+      bandwidth > kMaxBandwidth)
     return static_cast<int>(cudaErrorInvalidValue);
-  switch (bandwidth) {
-    case 15:
-      return static_cast<int>(launch<15>(
-          static_cast<const uint8_t*>(reads), n_reads, L,
-          static_cast<const int32_t*>(read_ids),
-          static_cast<const int32_t*>(read_lens),
-          static_cast<const int32_t*>(ref_base),
-          static_cast<const int32_t*>(txp_lens),
-          static_cast<const int32_t*>(read_starts), seq_off, off64,
-          static_cast<const uint32_t*>(words), n_word_rows, words_shift, P,
-          ma, mp, go, ge, oob_score, softclip, static_cast<float*>(out),
-          static_cast<cudaStream_t>(stream)));
+  const int J = cells_per_lane(bandwidth);
+#define BANDED_DP_LAUNCH(CELLS, BWC)                                         \
+    return static_cast<int>(launch<CELLS, BWC>(                              \
+        static_cast<const uint8_t*>(reads), n_reads, L,                      \
+        static_cast<const int32_t*>(read_ids),                               \
+        static_cast<const int32_t*>(read_lens),                              \
+        static_cast<const int32_t*>(ref_base),                               \
+        static_cast<const int32_t*>(txp_lens),                               \
+        static_cast<const int32_t*>(read_starts), seq_off, off64,            \
+        static_cast<const uint32_t*>(words), n_word_rows, words_shift, P,    \
+        bandwidth, ma, mp, go, ge, oob_score, softclip,                      \
+        static_cast<float*>(out), static_cast<cudaStream_t>(stream)));
+  // the fixed bands with B known to the compiler; every other band
+  // through the runtime-band instances
+  if (bandwidth == kFixedBands[0])
+    BANDED_DP_LAUNCH(cells_per_lane(kFixedBands[0]), kFixedBands[0])
+  if (bandwidth == kFixedBands[1])
+    BANDED_DP_LAUNCH(cells_per_lane(kFixedBands[1]), kFixedBands[1])
+  switch (J) {
+    case 1: BANDED_DP_LAUNCH(1, 0)
+    case 2: BANDED_DP_LAUNCH(2, 0)
+    case 3: BANDED_DP_LAUNCH(3, 0)
+    case 4: BANDED_DP_LAUNCH(4, 0)
+    case 5: BANDED_DP_LAUNCH(5, 0)
+    case 6: BANDED_DP_LAUNCH(6, 0)
+    case 7: BANDED_DP_LAUNCH(7, 0)
+    case 8: BANDED_DP_LAUNCH(8, 0)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef BANDED_DP_LAUNCH
 }
 
 const char* banded_dp_error_string(int code) {

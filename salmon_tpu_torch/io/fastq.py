@@ -97,6 +97,25 @@ def pack_seqs(seqs: Sequence[bytes], batch_size: int, max_len: int
     return out, full_lens
 
 
+def iter_single_chunks(paths: Sequence[str], batch_size: int, max_len: int
+                       ) -> Iterator[ReadChunk]:
+    """Stream single-end reads as fixed-shape chunks."""
+    seqs: list[bytes] = []
+
+    def chunk() -> ReadChunk:
+        L = bucket_len(max(len(x) for x in seqs), max_len)
+        return ReadChunk(*pack_seqs(seqs, batch_size, L))
+
+    for path in paths:
+        for seq in _iter_fastq_seqs(path):
+            seqs.append(seq)
+            if len(seqs) == batch_size:
+                yield chunk()
+                seqs = []
+    if seqs:
+        yield chunk()
+
+
 def iter_paired_chunks(paths1: Sequence[str], paths2: Sequence[str],
                        batch_size: int, max_len: int
                        ) -> Iterator[PairedChunk]:

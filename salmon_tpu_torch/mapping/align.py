@@ -13,9 +13,9 @@ position `pos`, the state is H[i, d] for band offset d in [-bw, bw]
                                 a Kogge-Stone shift-max cascade
 
 Two implementations of one function:
-  * the CUDA kernel csrc/banded_dp.cu (one warp per problem), launched
-    for CUDA tensors; it fuses the read-row gather and the 2-bit window
-    fetch;
+  * the CUDA kernel csrc/banded_dp.cu (one warp per problem, any band
+    half-width up to MAX_KERNEL_BANDWIDTH), launched for CUDA tensors;
+    it fuses the read-row gather and the 2-bit window fetch;
   * `_banded_scores_plain`, a torch port of the JAX package's lax.scan
     DP, run for CPU tensors and used as the kernel's reference.
 Scores are small integer sums in float32, so the two agree exactly.
@@ -31,18 +31,30 @@ import torch
 NEG = -1e9
 OOB_PENALTY = -1000.0  # aligning outside the transcript (overhang)
 
-#: band half-widths the CUDA kernel is instantiated for
-KERNEL_BANDWIDTHS = (15,)
+#: largest band half-width the CUDA kernel takes: B = 2*bw + 1 cells
+#: held 8 to a lane across one warp (csrc/banded_dp.cu)
+MAX_KERNEL_BANDWIDTH = 127
 
 
 class KernelCounter:
     """Launch count of one hand-written kernel. The wrapper adds one per
     kernel launch and nowhere else, so a run can show that its path went
-    through the kernel."""
+    through the kernel; `by_shape` splits the count by a shape key of the
+    wrapper's choosing (the band half-width for banded_dp)."""
 
     def __init__(self, name: str):
         self.name = name
-        self.launches = 0
+        self.by_shape: dict = {}
+
+    @property
+    def launches(self) -> int:
+        return sum(self.by_shape.values())
+
+    def reset(self) -> None:
+        self.by_shape = {}
+
+    def add(self, shape_key) -> None:
+        self.by_shape[shape_key] = self.by_shape.get(shape_key, 0) + 1
 
 
 BANDED_DP = KernelCounter("banded_dp")
@@ -186,17 +198,30 @@ def _check(t: torch.Tensor, name: str, dtypes, ndim: int, dev):
         raise ValueError(f"{name} must be a contiguous {ndim}-D tensor")
 
 
+def bind_banded_dp(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from csrc/banded_dp.cu
+    (banded_dp_scores and banded_dp_error_string) on `lib`."""
+    vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                         ctypes.c_float)
+    lib.banded_dp_scores.argtypes = [
+        vp, i64, i32, vp, vp, vp, vp, vp, vp, i32, vp, i64, i32, i32, i32,
+        f32, f32, f32, f32, f32, i32, vp, vp]
+    lib.banded_dp_scores.restype = i32
+    lib.banded_dp_error_string.argtypes = [i32]
+    lib.banded_dp_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _banded_dp_cuda(reads, read_ids, read_lens, ref_base, txp_lens,
                     seq_off, bandwidth: int, ma: float, mp: float,
                     go: float, ge: float, seq_words, seq_words_shift: int,
                     softclip: bool, softclip_overhangs: bool,
                     read_starts) -> torch.Tensor:
     """Launch csrc/banded_dp.cu on the current stream."""
-    if bandwidth not in KERNEL_BANDWIDTHS:
-        raise NotImplementedError(
-            f"the banded-DP kernel is built for bandwidths "
-            f"{KERNEL_BANDWIDTHS}, not {bandwidth} (the rescue band "
-            "comes with ROADMAP queue 1 #10)")
+    if not 0 <= bandwidth <= MAX_KERNEL_BANDWIDTH:
+        raise ValueError(
+            f"the banded-DP kernel takes band half-widths 0 to "
+            f"{MAX_KERNEL_BANDWIDTH}, not {bandwidth}")
     if seq_words is None:
         raise NotImplementedError(
             "the banded-DP kernel reads the 2-bit packed sequence words "
@@ -225,15 +250,8 @@ def _banded_dp_cuda(reads, read_ids, read_lens, ref_base, txp_lens,
     if P == 0:
         return out
     from salmon_tpu_torch import _cuda
-    lib = _cuda.load("banded_dp")
+    lib = bind_banded_dp(_cuda.load("banded_dp"))
     fn = lib.banded_dp_scores
-    vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-                         ctypes.c_float)
-    fn.argtypes = [vp, i64, i32, vp, vp, vp, vp, vp, vp, i32, vp, i64,
-                   i32, i32, i32, f32, f32, f32, f32, f32, i32, vp, vp]
-    fn.restype = i32
-    lib.banded_dp_error_string.argtypes = [i32]
-    lib.banded_dp_error_string.restype = ctypes.c_char_p
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(reads.data_ptr(), reads.shape[0], reads.shape[1],
@@ -248,7 +266,7 @@ def _banded_dp_cuda(reads, read_ids, read_lens, ref_base, txp_lens,
     if rc != 0:
         raise RuntimeError("banded_dp kernel launch failed: "
                            + lib.banded_dp_error_string(rc).decode())
-    BANDED_DP.launches += 1
+    BANDED_DP.add(bandwidth)
     return out
 
 

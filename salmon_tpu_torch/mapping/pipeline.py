@@ -1,13 +1,16 @@
-"""The per-batch paired-end mapping pipeline (the reference's per-read hot
-loop, src/quant/SalmonQuantify.cpp:1199-1845 processReads +
-processMiniBatch, as one fixed-shape tensor program).
+"""The per-batch mapping pipeline, paired-end and single-end (the
+reference's per-read hot loop, src/quant/SalmonQuantify.cpp:1199-1845
+and :1881-2325 processReads + processMiniBatch, as one fixed-shape
+tensor program).
 
-Counterpart of salmon_tpu/mapping/pipeline.py, paired path. Stages:
+Counterpart of salmon_tpu/mapping/pipeline.py (dense seed flow). Stages:
   1. canonical k-mer extraction            (mapping.kmers)
   2. two-choice bucket lookup              (mapping.lookup)
   3. occurrence expansion + chain scoring  (mapping.score)
   4. mate pairing / orphan fallback        (mapping.pair)
-  5. banded-DP validation                  (mapping.align, CUDA kernel)
+  5. banded-DP validation                  (mapping.align, CUDA kernel),
+     and with --recoverOrphans the rescue of orphans' missing mates
+     (the same kernel at the rescue band)
   6. decoy-aware filtering, aux-probability weights and eq-class
      tensor emission (reference SalmonMappingUtils.hpp:82-405,
      SalmonQuantify.cpp:599-857)
@@ -34,6 +37,7 @@ from salmon_tpu_torch.mapping.lookup import hash_lookup
 from salmon_tpu_torch.mapping.pair import (MS_LEFT_ORPHAN, MS_PAIRED,
                                            MS_RIGHT_ORPHAN, join_pairs,
                                            merge_paired_with_orphans,
+                                           observed_paired_code,
                                            orphan_hits)
 from salmon_tpu_torch.mapping.score import (_sort_rows,
                                             candidate_read_start,
@@ -85,6 +89,12 @@ class MapperConfig:
     gap_open_penalty: int = DEFAULTS.gap_open_penalty
     gap_extend_penalty: int = DEFAULTS.gap_extend_penalty
     dp_bandwidth: int = DEFAULTS.dp_bandwidth
+    # orphan rescue (reference recoverOrphans, opt-in)
+    recover_orphans: bool = DEFAULTS.recover_orphans
+    max_recover_read_occ: int = DEFAULTS.max_recover_read_occ
+    rescue_bandwidth: int = DEFAULTS.rescue_bandwidth
+    # FLD-quantile positions probed per orphan (1 = mean only)
+    rescue_probes: int = DEFAULTS.rescue_probes
     model_single_frag_prob: bool = not DEFAULTS.no_single_frag_prob
     no_frag_length_dist: bool = DEFAULTS.no_frag_length_dist
     softclip: bool = DEFAULTS.softclip
@@ -110,9 +120,6 @@ class MapperConfig:
         if os.environ.get("SALMON_TPU_ROWPOOL", "0") not in ("", "0"):
             raise NotImplementedError(
                 "the row-pool occurrence gather is ROADMAP queue 1 #19")
-        if opts.recover_orphans:
-            raise NotImplementedError(
-                "--recoverOrphans is ROADMAP queue 1 #10")
         cfg = dict(
             k=idx.k,
             n_slots=idx.table.n_slots,
@@ -143,6 +150,10 @@ class MapperConfig:
             gap_open_penalty=opts.gap_open_penalty,
             gap_extend_penalty=opts.gap_extend_penalty,
             dp_bandwidth=opts.dp_bandwidth,
+            recover_orphans=opts.recover_orphans,
+            max_recover_read_occ=opts.max_recover_read_occ,
+            rescue_bandwidth=opts.rescue_bandwidth,
+            rescue_probes=opts.rescue_probes,
             model_single_frag_prob=not opts.no_single_frag_prob,
             no_frag_length_dist=opts.no_frag_length_dist,
             softclip=opts.softclip,
@@ -239,7 +250,7 @@ def _dense_candidates(km, lk, dev: dict, cfg: MapperConfig):
 
 
 def _seed_candidates(ends, lengths_per_end, dev: dict, cfg: MapperConfig):
-    """Stages 1-3 for both read ends -> [(cand, start), ...]."""
+    """Stages 1-3 for each read end -> [(cand, start), ...]."""
     out = []
     for codes, lengths in zip(ends, lengths_per_end):
         km, lk = _end_seeds(codes, lengths, dev, cfg)
@@ -255,19 +266,31 @@ def _revcomp_flip(codes):
     return torch.where(flipped < 4, 3 - flipped, 4).to(codes.dtype)
 
 
-def _dp_scores(joined: dict, batch: dict, dev: dict, cfg: MapperConfig):
+def _reads_all(codes_l, codes_r):
+    """DP read rows by variant: 0 = l fw, 1 = l rc, 2 = r fw, 3 = r rc
+    (rc variants are flip-based: content at rows [L-len, L), declared
+    via read_starts); variant v of read r is row v * R + r."""
+    return torch.cat([codes_l, _revcomp_flip(codes_l),
+                      codes_r, _revcomp_flip(codes_r)], dim=0)
+
+
+def _dp_scores(joined: dict, batch: dict, dev: dict, cfg: MapperConfig,
+               single_end: bool = False):
     """Selective-alignment validation: banded affine DP score for the
     joined candidates (reference PuffAligner calculateAlignments,
-    SalmonQuantify.cpp:1523-1525). Returns (score, perfect) of (R, T2)."""
-    codes_l, len_l = batch["codes_l"], batch["lengths_l"]
-    codes_r, len_r = batch["codes_r"], batch["lengths_r"]
+    SalmonQuantify.cpp:1523-1525). A single-end batch (codes/lengths) is
+    its own left end and has one mate per problem. Returns (score,
+    perfect) of (R, T2)."""
+    if single_end:
+        codes_l, len_l = batch["codes"], batch["lengths"]
+        codes_r, len_r = codes_l, len_l
+    else:
+        codes_l, len_l = batch["codes_l"], batch["lengths_l"]
+        codes_r, len_r = batch["codes_r"], batch["lengths_r"]
     device = codes_l.device
     R, L = codes_l.shape
     T2 = joined["txp"].shape[1]
-    # read variants: 0=l fw, 1=l rc, 2=r fw, 3=r rc (rc variants are
-    # flip-based: content at rows [L-len, L), declared via read_starts)
-    reads_all = torch.cat([codes_l, _revcomp_flip(codes_l),
-                           codes_r, _revcomp_flip(codes_r)], dim=0)
+    reads_all = _reads_all(codes_l, codes_r)
 
     txp = joined["txp"]
     fw1 = joined["fw"]
@@ -277,7 +300,7 @@ def _dp_scores(joined: dict, batch: dict, dev: dict, cfg: MapperConfig):
     l1 = len_l[:, None]
     l2 = len_r[:, None]
     is_right_orphan = (ms == MS_RIGHT_ORPHAN)[:, None]
-    is_paired = (ms == MS_PAIRED)[:, None]
+    is_paired = (ms == MS_PAIRED)[:, None] & (not single_end)
 
     m1_var = torch.where(is_right_orphan, torch.where(fw1, 2, 3),
                          torch.where(fw1, 0, 1))
@@ -321,25 +344,25 @@ def _dp_scores(joined: dict, batch: dict, dev: dict, cfg: MapperConfig):
         flat = lambda a: a.expand(R, T2).reshape(-1)[sel]
         return flat(var), flat(p - lo), flat(ln), flat(lo)
 
-    v1, p1, n1, lo1 = mate_params(m1_var, m1_pos, m1_len)
-    v2, p2, n2, lo2 = mate_params(m2_var, m2_pos, m2_len)
-    t_sel = txp.reshape(-1)[sel]
-    t_sel = torch.cat([t_sel, t_sel])
+    # both mates ride ONE kernel call (concatenated problems); a
+    # single-end batch has only the first
+    mates = [mate_params(m1_var, m1_pos, m1_len)]
+    if not single_end:
+        mates.append(mate_params(m2_var, m2_pos, m2_len))
+    var, p, n, lo = (torch.cat(a) for a in zip(*mates))
+    t_sel = txp.reshape(-1)[sel].repeat(len(mates))
     toff = dev["seq_off"][t_sel.clamp(0, dev["seq_off"].shape[0] - 1)]
     tlen = dev["txp_lens"][t_sel.clamp(0, dev["txp_lens"].shape[0] - 1)]
-    var = torch.cat([v1, v2])
-    ids = (torch.cat([sel_read, sel_read]) + var * R).to(torch.int32)
+    ids = (sel_read.repeat(len(mates)) + var * R).to(torch.int32)
     i32 = torch.int32
-    # both mates ride ONE kernel call (concatenated problems)
     scores = banded_scores_indexed(
-        reads_all, ids, torch.cat([n1, n2]).to(i32),
-        torch.cat([p1, p2]).to(i32), tlen, None, toff, cfg.dp_bandwidth,
-        float(cfg.match_score), float(cfg.mismatch_penalty),
-        float(cfg.gap_open_penalty), float(cfg.gap_extend_penalty),
-        seq_words=dev["seq4"], seq_words_shift=_SEQ4_SHIFT,
-        softclip=cfg.softclip, softclip_overhangs=cfg.softclip_overhangs,
-        read_starts=torch.cat([lo1, lo2]).to(i32))
-    scores = torch.where(torch.cat([sel_valid, sel_valid]), scores, -1e9)
+        reads_all, ids, n.to(i32), p.to(i32), tlen, None, toff,
+        cfg.dp_bandwidth, float(cfg.match_score),
+        float(cfg.mismatch_penalty), float(cfg.gap_open_penalty),
+        float(cfg.gap_extend_penalty), seq_words=dev["seq4"],
+        seq_words_shift=_SEQ4_SHIFT, softclip=cfg.softclip,
+        softclip_overhangs=cfg.softclip_overhangs, read_starts=lo.to(i32))
+    scores = torch.where(sel_valid.repeat(len(mates)), scores, -1e9)
 
     perfect = torch.where(is_paired, cfg.match_score * (l1 + l2),
                           cfg.match_score * m1_len).to(torch.float32)
@@ -347,14 +370,147 @@ def _dp_scores(joined: dict, batch: dict, dev: dict, cfg: MapperConfig):
     # DP'd slots get their scores scattered in; full-coverage slots take
     # the perfect score
     s1 = torch.full((R * T2,), -1e9, dtype=torch.float32, device=device)
-    s2 = s1.clone()
     s1[sel] = scores[:K]
-    s2[sel] = scores[K:]
     s1 = s1.reshape(R, T2)
-    s2 = s2.reshape(R, T2)
-    score = torch.where(is_paired, s1 + s2, s1)
+    score = s1
+    if not single_end:
+        s2 = torch.full((R * T2,), -1e9, dtype=torch.float32,
+                        device=device)
+        s2[sel] = scores[K:]
+        score = torch.where(is_paired, s1 + s2.reshape(R, T2), s1)
     score = torch.where(full_cov, perfect, score)
     return score, perfect
+
+
+def rescue_probe_lengths(fld_logpmf, n_probes: int) -> torch.Tensor:
+    """Fragment lengths at which the rescue probes an orphan's missing
+    mate: the FLD's mean (one probe) or its (i + 0.5) / Q quantiles,
+    the median first, then the others by distance from it. (Q,) int32.
+    The quantiles come from a float32 running sum of the pmf, as in the
+    JAX package, so they can differ from it by one position where a
+    quantile lands within rounding of a CDF value."""
+    pmf = torch.exp(fld_logpmf)
+    if n_probes <= 1:
+        lengths = torch.arange(pmf.shape[0], dtype=torch.float32,
+                               device=pmf.device)
+        return torch.round((pmf * lengths).sum()).to(torch.int32)[None]
+    cdf = torch.cumsum(pmf, dim=0)
+    qs = sorted([(i + 0.5) / n_probes for i in range(n_probes)],
+                key=lambda q: abs(q - 0.5))
+    return torch.searchsorted(cdf, torch.stack([q * cdf[-1] for q in qs]))\
+        .to(torch.int32)
+
+
+def _rescue_orphans(joined: dict, batch: dict, dev: dict, cfg: MapperConfig,
+                    fld_logpmf, aln_score, perfect_score):
+    """Orphan rescue (reference recoverOrphans ->
+    selective_alignment::utils::recoverOrphans, consumed at
+    SalmonQuantify.cpp:1356-1364, edlib-based).
+
+    For each orphan fragment's best candidate, the missing mate is
+    DP-aligned at the rescue_probe_lengths positions with the wider
+    rescue band, where the reference searches the whole window with
+    edlib. (orphan, probe) pairs are compacted into K = R/4 problems of
+    one kernel launch, every orphan's median probe before any orphan's
+    second probe. A rescued fragment becomes paired, with the rescue
+    score added to its first hit. Returns (joined, aln_score,
+    perfect_score, number rescued)."""
+    codes_l, len_l = batch["codes_l"], batch["lengths_l"]
+    codes_r, len_r = batch["codes_r"], batch["lengths_r"]
+    device = codes_l.device
+    R, L = codes_l.shape
+    reads_all = _reads_all(codes_l, codes_r)
+
+    ms = joined["mate_status"]
+    txp0 = joined["txp"][:, 0]
+    pos0 = joined["pos"][:, 0]
+    fw0 = joined["fw"][:, 0]
+    # reference gate: no rescue for reads mapping more than
+    # maxRecoverReadOcc times (ProgramOptionsGenerator.cpp:493-497)
+    n_occ = joined["valid"].sum(dim=1)
+    cand_ok = (joined["valid"][:, 0] & (ms != MS_PAIRED)
+               & (n_occ <= cfg.max_recover_read_occ))
+
+    Q = max(1, int(cfg.rescue_probes))
+    fl_probes = rescue_probe_lengths(fld_logpmf, Q)
+    left_orph = ms == MS_LEFT_ORPHAN
+    miss_len = torch.where(left_orph, len_r, len_l)
+    mapped_len = torch.where(left_orph, len_l, len_r)
+    # inward pairing: the missing mate has the other orientation
+    var = torch.where(left_orph, torch.where(fw0, 3, 2),
+                      torch.where(fw0, 1, 0))
+    # (Q, R) predicted leftmost position of the missing mate
+    fl = fl_probes[:, None]
+    mate_left_q = torch.where(fw0, pos0 + fl - miss_len,
+                              pos0 + mapped_len - fl).reshape(-1)
+
+    K = max(1, R // 4)
+    orph_idx = torch.arange(R, device=device).repeat(Q)      # (Q*R,)
+    q_idx = torch.arange(Q, device=device).repeat_interleave(R)
+    cand_tile = cand_ok.repeat(Q)
+    prio = torch.where(cand_tile, q_idx * R + orph_idx, 0xFFFFFFFF)
+    sel_flat = torch.argsort(prio, stable=True)[:K]
+    sel = orph_idx[sel_flat]                                  # orphan row
+    s_ok = cand_tile[sel_flat]
+    s_txp = txp0[sel]
+    toff = dev["seq_off"][s_txp.clamp(0, dev["seq_off"].shape[0] - 1)]
+    tlen = dev["txp_lens"][s_txp.clamp(0, dev["txp_lens"].shape[0] - 1)]
+    s_var = var[sel]
+    s_len = miss_len[sel]
+    s_lo = torch.where((s_var & 1) == 1, L - s_len, 0)
+    ml_flat = mate_left_q[sel_flat]
+    i32 = torch.int32
+    scores = banded_scores_indexed(
+        reads_all, (sel + s_var * R).to(i32), s_len.to(i32),
+        (ml_flat - s_lo).to(i32), tlen, None, toff, cfg.rescue_bandwidth,
+        float(cfg.match_score), float(cfg.mismatch_penalty),
+        float(cfg.gap_open_penalty), float(cfg.gap_extend_penalty),
+        seq_words=dev["seq4"], seq_words_shift=_SEQ4_SHIFT,
+        softclip=cfg.softclip, softclip_overhangs=cfg.softclip_overhangs,
+        read_starts=s_lo.to(i32))
+    good = s_ok & (scores >= cfg.min_score_fraction * cfg.match_score
+                   * s_len.to(torch.float32))
+    # per orphan, the best of its probes wins; the winning probe's mate
+    # position makes the pair
+    resc = torch.zeros(R, dtype=i32, device=device).scatter_reduce_(
+        0, sel, good.to(i32), "amax").to(torch.bool)
+    resc_score = torch.zeros(R, dtype=torch.float32,
+                             device=device).scatter_reduce_(
+        0, sel, torch.where(good, scores, 0.0), "amax")
+    is_win = good & (scores >= resc_score[sel])
+    int_min = torch.iinfo(i32).min
+    mate_left = torch.full((R,), int_min, dtype=i32,
+                           device=device).scatter_reduce_(
+        0, sel, torch.where(is_win, ml_flat, int_min).to(i32), "amax")
+    mate_left = torch.where(resc, mate_left, 0)
+
+    # column 0 carries the rescued pair
+    s1, s2 = pos0, mate_left
+    new_flen = torch.abs(torch.maximum(s1 + mapped_len, s2 + miss_len)
+                         - torch.minimum(s1, s2))
+    joined = dict(joined)
+    joined["mate_status"] = torch.where(resc, MS_PAIRED, ms).to(ms.dtype)
+    joined["frag_len"] = torch.where(resc[:, None], new_flen[:, None],
+                                     joined["frag_len"]).to(
+                                         joined["frag_len"].dtype)
+
+    def set_col0(a, v):
+        a = a.clone()
+        a[:, 0] = torch.where(resc, v, a[:, 0]).to(a.dtype)
+        return a
+
+    joined["obs_code"] = set_col0(joined["obs_code"],
+                                  observed_paired_code(s1, fw0, s2, ~fw0))
+    joined["pos"] = set_col0(joined["pos"], torch.minimum(s1, s2))
+    if aln_score is not None:
+        aln_score = set_col0(aln_score,
+                             aln_score[:, 0] + torch.where(resc, resc_score,
+                                                           0.0))
+        perfect_score = torch.where(
+            resc[:, None],
+            (cfg.match_score * (len_l + len_r)[:, None]).to(torch.float32),
+            perfect_score)
+    return joined, aln_score, perfect_score, resc.sum(dtype=i32)
 
 
 def _fld_inputs(fld):
@@ -371,12 +527,15 @@ def _fld_inputs(fld):
 
 def _filter_and_weight(joined: dict, fld, compat_paired,
                        compat_orphan, cfg: MapperConfig, aln_score=None,
-                       perfect_score=None, tlen=None, rlen_mapped=None):
+                       perfect_score=None, tlen=None, rlen_mapped=None,
+                       single_end: bool = False):
     """Stages 5-6: decoy-aware filtering and aux-probability weights.
 
     joined: dict of (R, W) hits plus (R,) mate_status. fld: see
     _fld_inputs.
-    compat_paired: (6,) bool; compat_orphan: (2, 2) bool.
+    compat_paired: (6,) bool; compat_orphan: (2, 2) bool. A single-end
+    batch has no pairs: its hits take the ambiguous-length probability
+    of orphans (0 where the FLD is not modelled).
     Returns (eq_txp, eq_weight, frag_ok, aln_valid, wn, eq_bins, extras).
     """
     txp = joined["txp"]
@@ -419,10 +578,12 @@ def _filter_and_weight(joined: dict, fld, compat_paired,
     M = cfg.fld_max
     n_tab = logpmf.shape[0]
     flen = joined["frag_len"].clamp(0, M)
-    is_pair_row = (ms[:, None] == MS_PAIRED)
+    is_pair_row = (ms[:, None] == MS_PAIRED) & (not single_end)
     if cfg.no_frag_length_dist:
-        # --noFragLengthDist: pairs get LOG_1; orphans a fixed penalty
-        log_flen_prob = torch.where(is_pair_row, 0.0, LOG_EPSILON)
+        # --noFragLengthDist: pairs and single-end hits get LOG_1;
+        # orphans a fixed penalty
+        log_flen_prob = torch.where(is_pair_row | single_end, 0.0,
+                                    LOG_EPSILON)
     else:
         tl = tlen.clamp(min=0)
         logcmf_t = logcmf[tl.clamp(max=M).clamp(max=n_tab - 1)]
@@ -454,7 +615,8 @@ def _filter_and_weight(joined: dict, fld, compat_paired,
             ambig = torch.where(cmf_ok, logcmf[idx_main] - logcmf_t,
                                 LOG_EPSILON)
         else:
-            ambig = torch.full_like(lenprob, LOG_EPSILON)
+            ambig = torch.full_like(lenprob,
+                                    0.0 if single_end else LOG_EPSILON)
         log_flen_prob = torch.where(is_pair_row, paired_prob, ambig)
 
     # library-format compatibility
@@ -516,6 +678,50 @@ def _filter_and_weight(joined: dict, fld, compat_paired,
     return eq_txp, eq_w, frag_ok, aln_valid, wn, eq_bins, extras
 
 
+def _weigh_and_emit(joined: dict, aln_score, perfect, real_row, dev: dict,
+                    cfg: MapperConfig, fld, compat_paired, compat_orphan,
+                    rlen_mapped, single_end: bool = False) -> dict:
+    """Stages 5-6 on the top weight_width joined hits, padding rows
+    dropped: the eq-class tensors, the online per-transcript mass (EM
+    initialization) and the counters both read layouts share."""
+    W = min(cfg.weight_width, joined["txp"].shape[1])
+    joined_w = {k: (v[:, :W] if v.dim() == 2 else v)
+                for k, v in joined.items()}
+    n_t = dev["txp_lens"].shape[0]
+    tlen = dev["txp_lens"][joined_w["txp"].clamp(
+        0, min(cfg.num_txps, n_t) - 1)]
+    eq_txp, eq_w, frag_ok, aln_valid, wn, eq_bins, fextras = \
+        _filter_and_weight(
+            joined_w, fld, compat_paired, compat_orphan, cfg,
+            aln_score=None if aln_score is None else aln_score[:, :W],
+            perfect_score=None if perfect is None else perfect[:, :W],
+            tlen=tlen, rlen_mapped=rlen_mapped, single_end=single_end)
+    frag_ok = frag_ok & real_row
+    aln_valid = aln_valid & real_row[:, None]
+    eq_txp = torch.where(aln_valid, eq_txp, INVALID_TXP)
+    txp_mass = torch.zeros(cfg.num_txps, dtype=torch.float32,
+                           device=eq_w.device).index_add_(
+        0, eq_txp.clamp(0, cfg.num_txps - 1).reshape(-1).to(torch.int64),
+        torch.where(aln_valid, wn, 0.0).reshape(-1))
+    i32 = torch.int32
+    return {
+        "eq_txp": eq_txp,
+        "eq_weight": torch.where(aln_valid, eq_w, 0.0),
+        "eq_bins": torch.where(aln_valid, eq_bins, -1),
+        "frag_ok": frag_ok,
+        "txp_mass": txp_mass,
+        "num_processed": real_row.sum(dtype=i32),
+        "num_mapped": frag_ok.sum(dtype=i32),
+        "num_decoy_fragments": (fextras["decoy_frag"] & real_row).sum(
+            dtype=i32),
+        "num_frags_filtered_vm": (
+            fextras["had_pre"] & ~frag_ok & ~fextras["decoy_frag"]
+            & real_row).sum(dtype=i32),
+        "num_alns_below_threshold": torch.where(
+            frag_ok, fextras["below_thresh"], 0).sum(dtype=i32),
+    }
+
+
 def map_paired_batch(batch: dict, dev: dict, cfg: MapperConfig, fld: dict,
                      compat_paired, compat_orphan) -> dict:
     """Map one paired-end batch end to end.
@@ -548,37 +754,21 @@ def map_paired_from_cands(cands, batch: dict, dev: dict, cfg: MapperConfig,
                                        cfg.discard_orphans)
 
     aln_score = perfect = None
+    n_rescued = torch.zeros((), dtype=torch.int32, device=len_l.device)
     if cfg.validate_mappings:
         aln_score, perfect = _dp_scores(joined, batch, dev, cfg)
+        if cfg.recover_orphans:
+            joined, aln_score, perfect, n_rescued = _rescue_orphans(
+                joined, batch, dev, cfg, _fld_inputs(fld)[0], aln_score,
+                perfect)
 
     real_row = len_l > 0  # padding rows never count
-    # weighting/eq emission runs on the top weight_width hits
-    W = min(cfg.weight_width, joined["txp"].shape[1])
-    joined_w = {k: (v[:, :W] if v.dim() == 2 else v)
-                for k, v in joined.items()}
-    n_t = dev["txp_lens"].shape[0]
-    tlen = dev["txp_lens"][joined_w["txp"].clamp(
-        0, min(cfg.num_txps, n_t) - 1)]
     left_orph = joined["mate_status"] == MS_LEFT_ORPHAN
-    rlen_mapped = torch.where(left_orph, len_l, len_r)
-    eq_txp, eq_w, frag_ok, aln_valid, wn, eq_bins, fextras = \
-        _filter_and_weight(
-            joined_w, fld, compat_paired, compat_orphan, cfg,
-            aln_score=None if aln_score is None else aln_score[:, :W],
-            perfect_score=None if perfect is None else perfect[:, :W],
-            tlen=tlen, rlen_mapped=rlen_mapped)
-    frag_ok = frag_ok & real_row
-    aln_valid = aln_valid & real_row[:, None]
-    eq_txp = torch.where(aln_valid, eq_txp, INVALID_TXP)
-    eq_w = torch.where(aln_valid, eq_w, 0.0)
-    eq_bins = torch.where(aln_valid, eq_bins, -1)
-
-    device = eq_w.device
-    # online per-transcript mass (EM initialization)
-    txp_mass = torch.zeros(cfg.num_txps, dtype=torch.float32,
-                           device=device).index_add_(
-        0, eq_txp.clamp(0, cfg.num_txps - 1).reshape(-1).to(torch.int64),
-        torch.where(aln_valid, wn, 0.0).reshape(-1))
+    out = _weigh_and_emit(joined, aln_score, perfect, real_row, dev, cfg,
+                          fld, compat_paired, compat_orphan,
+                          torch.where(left_orph, len_l, len_r))
+    frag_ok = out["frag_ok"]
+    device = frag_ok.device
 
     # FLD observation: the best paired hit's fragment length
     is_paired = (joined["mate_status"] == MS_PAIRED) & frag_ok
@@ -603,36 +793,84 @@ def map_paired_from_cands(cands, batch: dict, dev: dict, cfg: MapperConfig,
         is_paired_obs.to(torch.int32))
 
     i32 = torch.int32
-
-    def count(mask):
-        return mask.sum(dtype=i32)
-
-    return {
-        "num_orphans_rescued": torch.zeros((), dtype=i32, device=device),
+    out.update({
+        "num_orphans_rescued": n_rescued,
         "best_txp": take_best(joined["txp"]),
         "best_pos": take_best(joined["pos"]),
         "best_flen": best_flen,
         "best_fw": take_best(joined["fw"]),
         "best_is_paired": is_paired,
-        "eq_txp": eq_txp,
-        "eq_weight": eq_w,
-        "eq_bins": eq_bins,
-        "frag_ok": frag_ok,
-        "txp_mass": txp_mass,
-        "num_processed": count(real_row),
-        "num_mapped": count(frag_ok),
-        "num_paired": count(is_paired),
-        "num_orphans": count(frag_ok
-                             & (joined["mate_status"] != MS_PAIRED)),
-        "num_decoy_fragments": count(fextras["decoy_frag"] & real_row),
-        "num_dovetail_fragments": count(
-            paired["has_dovetail_only"] & ~frag_ok & real_row),
-        "num_frags_filtered_vm": count(
-            fextras["had_pre"] & ~frag_ok & ~fextras["decoy_frag"]
-            & real_row),
-        "num_alns_below_threshold": torch.where(
-            frag_ok & real_row, fextras["below_thresh"], 0).sum(dtype=i32),
+        "num_paired": is_paired.sum(dtype=i32),
+        "num_orphans": (frag_ok & (joined["mate_status"] != MS_PAIRED)).sum(
+            dtype=i32),
+        "num_dovetail_fragments": (
+            paired["has_dovetail_only"] & ~frag_ok & real_row).sum(
+                dtype=i32),
         "seed_tail_over": seed_tail_over,
         "fld_hist": fld_hist,
         "fmt_hist": fmt_hist,
-    }
+    })
+    return out
+
+
+def map_single_batch(batch: dict, dev: dict, cfg: MapperConfig, fld,
+                     compat_single) -> dict:
+    """Map one single-end batch end to end (reference: processReads,
+    single-end overload, SalmonQuantify.cpp:1881-2325).
+
+    batch: codes (R, L) uint8 and lengths (R,) int32 on the device of
+    `dev`. compat_single: (2,) bool over observed (fw, rc) hits.
+    Returns the eq-class tensors, counters and histograms of
+    map_paired_batch without its best-hit keys; fld_hist is all zero (a
+    single read observes no fragment length) and fmt_hist counts SF (0)
+    and SR (1) hits.
+    """
+    cands = _seed_candidates([batch["codes"]], [batch["lengths"]], dev, cfg)
+    return map_single_from_cands(cands, batch, dev, cfg, fld, compat_single)
+
+
+def map_single_from_cands(cands, batch: dict, dev: dict, cfg: MapperConfig,
+                          fld, compat_single) -> dict:
+    """Single-end stages 4-6 from scored seed candidates: each read's
+    candidates become its hits, held as paired-status hits whose
+    observed code is 0 (fw) or 1 (rc) against a 6-wide table padded with
+    False."""
+    [(cand, start)] = cands
+    seed_tail_over = cand.pop("tail_over")
+    lengths = batch["lengths"]
+    R = lengths.shape[0]
+    device = lengths.device
+    joined = orphan_hits(cand, start, MS_PAIRED, cfg.max_pair_cands)
+    joined["mate_status"] = torch.full((R,), MS_PAIRED, dtype=torch.int32,
+                                       device=device)
+    joined["obs_code"] = torch.where(joined["fw"], 0, 1).to(torch.int32)
+    compat6 = torch.cat([compat_single.to(torch.bool),
+                         torch.zeros(4, dtype=torch.bool, device=device)])
+
+    aln_score = perfect = None
+    if cfg.validate_mappings:
+        aln_score, perfect = _dp_scores(joined, batch, dev, cfg,
+                                        single_end=True)
+    out = _weigh_and_emit(
+        joined, aln_score, perfect, lengths > 0, dev, cfg, fld, compat6,
+        torch.ones((2, 2), dtype=torch.bool, device=device), lengths,
+        single_end=True)
+
+    # observed strand of each mapped read's best hit (SF = 0, SR = 1)
+    best_i = torch.argmax(joined["score"], dim=1, keepdim=True)
+    fw_best = torch.gather(joined["fw"], 1, best_i)[:, 0]
+    fmt_hist = torch.zeros(6, dtype=torch.int32, device=device).index_add_(
+        0, torch.where(fw_best, 0, 1), out["frag_ok"].to(torch.int32))
+
+    zero = torch.zeros((), dtype=torch.int32, device=device)
+    out.update({
+        "num_paired": zero,
+        "num_orphans": zero,
+        "num_orphans_rescued": zero,
+        "num_dovetail_fragments": zero,
+        "seed_tail_over": seed_tail_over,
+        "fld_hist": torch.zeros(cfg.fld_max + 1, dtype=torch.float32,
+                                device=device),
+        "fmt_hist": fmt_hist,
+    })
+    return out

@@ -1,4 +1,5 @@
-"""End-to-end quantification, paired-end mapping mode, one device.
+"""End-to-end quantification, mapping mode (paired-end or single-end
+reads), one device.
 
 Counterpart of salmon_tpu/quant.py (reference flow: salmonQuantify ->
 processReads workers -> eq classes -> CollapsedEMOptimizer::optimize ->
@@ -24,10 +25,11 @@ from salmon_tpu_torch.inference import em as em_mod
 from salmon_tpu_torch.inference.clusters import normalize_alphas
 from salmon_tpu_torch.inference.eqclasses import EquivalenceClassAccumulator
 from salmon_tpu_torch.io import writers
-from salmon_tpu_torch.io.fastq import iter_paired_chunks
+from salmon_tpu_torch.io.fastq import iter_paired_chunks, iter_single_chunks
 from salmon_tpu_torch.mapping.pipeline import (MapperConfig,
                                                device_index_tensors,
-                                               map_paired_batch)
+                                               map_paired_batch,
+                                               map_single_batch)
 from salmon_tpu_torch.models.efflen import effective_lengths
 from salmon_tpu_torch.models.fld import FragmentLengthDistribution
 from salmon_tpu_torch.utils import libformat
@@ -52,6 +54,8 @@ class QuantResult:
     lib_format: str = ""
     mapping_stats: dict = dataclasses.field(default_factory=dict)
     num_batches: int = 0
+    num_orphans_rescued: int = 0
+    paired: bool = True
 
 
 class InsufficientAssignedFragments(RuntimeError):
@@ -79,11 +83,22 @@ class ForgettingMass:
 DETECT_SAMPLES_NEEDED = 50_000  # LibraryTypeDetector numSamplesNeeded_
 
 
-def _detect_library_format(fmt_hist: np.ndarray) -> str:
-    """Auto-detect '-l A' for paired reads from the observed orientation
-    histogram (reference LibraryTypeDetector::mostLikelyType,
+def _detect_library_format(fmt_hist: np.ndarray, paired: bool) -> str:
+    """Auto-detect '-l A' from the observed orientation histogram
+    (reference LibraryTypeDetector::mostLikelyType,
     LibraryTypeDetector.hpp:34-143): orientation by argmax, then
-    strandedness with the 30%/70% forward-ratio bands."""
+    strandedness with the 30%/70% forward-ratio bands. Single-end
+    histograms count SF in entry 0 and SR in entry 1."""
+    if not paired:
+        fw, rc = int(fmt_hist[0]), int(fmt_hist[1])
+        if fw + rc == 0:
+            return "U"
+        ratio = fw / (fw + rc)
+        if ratio < 0.3:
+            return "SR"
+        if ratio < 0.7:
+            return "U"
+        return "SF"
     names = libformat.format_names_paired()
     counts = {names[i]: int(fmt_hist[i]) for i in range(6)}
     o_tot = {"I": counts["ISF"] + counts["ISR"],
@@ -132,11 +147,11 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
              reads1: Sequence[str], reads2: Optional[Sequence[str]],
              opts: SalmonDefaults = DEFAULTS, progress: bool = True,
              device="cuda") -> QuantResult:
-    """Paired-end mapping-based quantification on `device` (reference:
-    salmonQuantify, src/quant/SalmonQuantify.cpp:2777)."""
+    """Mapping-based quantification on `device` (reference:
+    salmonQuantify, src/quant/SalmonQuantify.cpp:2777): paired-end
+    reads, or single-end reads when `reads2` is None."""
     t0 = time.time()
-    if reads2 is None:
-        raise NotImplementedError("single-end reads are ROADMAP queue 1 #10")
+    paired = reads2 is not None
     _check_ported(opts)
     device = torch.device(device)
     if isinstance(index, str):
@@ -151,7 +166,8 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
     acc = EquivalenceClassAccumulator()
     online_mass = np.zeros(index.num_targets, dtype=np.float64)
     totals = {"num_processed": 0, "num_mapped": 0, "num_paired": 0,
-              "num_orphans": 0, "num_decoy_fragments": 0,
+              "num_orphans": 0, "num_orphans_rescued": 0,
+              "num_decoy_fragments": 0,
               "num_dovetail_fragments": 0, "num_frags_filtered_vm": 0,
               "num_alns_below_threshold": 0, "seed_tail_over": 0}
     fmt_hist_total = np.zeros(6, dtype=np.int64)
@@ -160,20 +176,21 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
     resolved_format = None if auto_detect else lib_format.strip().upper()
 
     def compat_tensors(fmt: libformat.LibraryFormat):
-        return (torch.as_tensor(libformat.paired_compat_table(fmt),
-                                device=device),
-                torch.as_tensor(libformat.orphan_compat_table(fmt),
-                                device=device))
+        """(paired, orphan) tables, or the (single,) table."""
+        tabs = ((libformat.paired_compat_table(fmt),
+                 libformat.orphan_compat_table(fmt)) if paired
+                else (libformat.single_compat_table(fmt),))
+        return tuple(torch.as_tensor(t, device=device) for t in tabs)
 
     if auto_detect:
         # while detecting, every format is compatible (the reference
         # runs with a neutral incompatPrior until the detector can guess,
         # SalmonQuantify.cpp:691-700)
-        cp = torch.ones(6, dtype=torch.bool, device=device)
-        co = torch.ones((2, 2), dtype=torch.bool, device=device)
+        compat = tuple(torch.ones(shape, dtype=torch.bool, device=device)
+                       for shape in ([(6,), (2, 2)] if paired else [(2,)]))
         detect_hist = np.zeros(6, dtype=np.int64)
     else:
-        cp, co = compat_tensors(libformat.parse_library_format(lib_format))
+        compat = compat_tensors(libformat.parse_library_format(lib_format))
 
     def put(a):
         return torch.from_numpy(a).to(device)
@@ -197,11 +214,15 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
                                       device=device),
             "mode": mode,
         }
+        if not paired:
+            batch = {"codes": put(chunk.codes),
+                     "lengths": put(chunk.lengths)}
+            return map_single_batch(batch, dev, cfg, fld_in, *compat)
         batch = {"codes_l": put(chunk.left.codes),
                  "lengths_l": put(chunk.left.lengths),
                  "codes_r": put(chunk.right.codes),
                  "lengths_r": put(chunk.right.lengths)}
-        return map_paired_batch(batch, dev, cfg, fld_in, cp, co)
+        return map_paired_batch(batch, dev, cfg, fld_in, *compat)
 
     n_batches = 0
     last_progress = time.time()
@@ -236,18 +257,24 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
     # runs (depth 1 = the reference's one-batch-stale online state)
     depth = max(1, opts.pipeline_depth)
     pending = collections.deque()
-    for chunk in iter_paired_chunks(reads1, reads2, opts.reads_per_batch,
-                                    opts.max_read_len):
+    if paired:
+        chunks = iter_paired_chunks(reads1, reads2, opts.reads_per_batch,
+                                    opts.max_read_len)
+    else:
+        chunks = iter_single_chunks(reads1, opts.reads_per_batch,
+                                    opts.max_read_len)
+    for chunk in chunks:
         out = submit(chunk)
         if resolved_format is None:
             # detection batches run synchronously (reference
             # LibraryTypeDetector: 50k samples, neutral compat until then)
             detect_hist += _to_np(out["fmt_hist"]).astype(np.int64)
             if detect_hist.sum() >= DETECT_SAMPLES_NEEDED:
-                resolved_format = _detect_library_format(detect_hist)
+                resolved_format = _detect_library_format(detect_hist,
+                                                         paired)
                 logger.info("auto-detected library format: %s",
                             resolved_format)
-                cp, co = compat_tensors(
+                compat = compat_tensors(
                     libformat.parse_library_format(resolved_format))
         pending.append(out)
         if len(pending) > depth:
@@ -255,7 +282,7 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
     while pending:
         consume(pending.popleft())
     if auto_detect and resolved_format is None:
-        resolved_format = _detect_library_format(detect_hist)
+        resolved_format = _detect_library_format(detect_hist, paired)
         logger.info("auto-detected library format (short input): %s",
                     resolved_format)
     map_seconds = time.time() - t0
@@ -276,6 +303,8 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
         sz = np.repeat(eq.class_sizes.astype(np.float64), eq.class_sizes)
         eq = dataclasses.replace(eq, weights=1.0 / np.maximum(sz, 1.0))
     n_valid = index.num_valid_targets
+    # single-end keeps the prior FLD (no paired observations), which the
+    # reference likewise uses for its length correction
     fld_pmf = fld.pmf()
     eff = effective_lengths(
         np.asarray(index.lengths[:n_valid]), fld_pmf,
@@ -312,7 +341,8 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
     res["em_seconds"] = time.time() - t_em
 
     counts = res["alphas"]
-    names = libformat.format_names_paired()
+    names = (libformat.format_names_paired() if paired
+             else libformat.format_names_single())
     return QuantResult(
         names=index.names[:n_valid], counts=counts, eff_lens=eff,
         tpm=writers.compute_tpm(counts, eff),
@@ -327,7 +357,8 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
         mapping_stats={k: totals[k] for k in (
             "num_decoy_fragments", "num_dovetail_fragments",
             "num_frags_filtered_vm", "num_alns_below_threshold")},
-        num_batches=n_batches)
+        num_batches=n_batches,
+        num_orphans_rescued=totals["num_orphans_rescued"], paired=paired)
 
 
 def write_outputs(result: QuantResult, index: TranscriptomeIndex,
@@ -346,11 +377,15 @@ def write_outputs(result: QuantResult, index: TranscriptomeIndex,
     writers.write_cmd_info(out_dir, cmd_args or {})
     # numCompat: observed formats compatible with the expected one
     # (reference ReadLibrary::numCompat via salmon::utils::compatibleHit)
-    compat = libformat.paired_compat_table(
-        libformat.parse_library_format(result.lib_format))
-    num_compat = sum(int(result.fmt_counts.get(nm, 0)) for i, nm in
-                     enumerate(libformat.format_names_paired())
-                     if compat[i])
+    fmt = libformat.parse_library_format(result.lib_format)
+    if result.paired:
+        compat = libformat.paired_compat_table(fmt)
+        names = libformat.format_names_paired()
+    else:
+        compat = libformat.single_compat_table(fmt)
+        names = libformat.format_names_single()
+    num_compat = sum(int(result.fmt_counts.get(nm, 0))
+                     for i, nm in enumerate(names) if compat[i])
     writers.write_lib_format_counts(
         out_dir, result.lib_format, result.fmt_counts, num_compat,
         result.num_processed, result.num_mapped)
@@ -388,7 +423,7 @@ def write_outputs(result: QuantResult, index: TranscriptomeIndex,
         "num_targets": index.num_targets,
         "num_processed": result.num_processed,
         "num_mapped": result.num_mapped,
-        "num_orphans_rescued": 0,
+        "num_orphans_rescued": result.num_orphans_rescued,
         "num_decoy_fragments":
         result.mapping_stats.get("num_decoy_fragments", 0),
         "num_dovetail_fragments":

@@ -103,6 +103,9 @@ def parse_library_format(s: str) -> LibraryFormat:
 #   fwd1 == fwd2, !fwd1                -> MSR  (SAME,  A)
 OBS_ISF, OBS_OSF, OBS_ISR, OBS_OSR, OBS_MSF, OBS_MSR = range(6)
 _OBS_PAIRED = ["ISF", "OSF", "ISR", "OSR", "MSF", "MSR"]
+# Single-end observed codes:
+OBS_SF, OBS_SR = 0, 1
+_OBS_SINGLE = ["SF", "SR"]
 
 
 def paired_compat_table(expected: LibraryFormat) -> np.ndarray:
@@ -123,6 +126,18 @@ def paired_compat_table(expected: LibraryFormat) -> np.ndarray:
             out[code] = (expected.strandedness == Strandedness.U
                          or expected.strandedness == obs.strandedness)
     return out
+
+
+def single_compat_table(expected: LibraryFormat) -> np.ndarray:
+    """bool[2] over (SF, SR) observed single-end hits.
+
+    Reference: compatibleHit(expected, start, isForward, SINGLE_END)
+    SalmonUtils.cpp:191-205.
+    """
+    es = expected.strandedness
+    fw_ok = es in (Strandedness.U, Strandedness.S)
+    rc_ok = es in (Strandedness.U, Strandedness.A)
+    return np.array([fw_ok, rc_ok], dtype=bool)
 
 
 def orphan_compat_table(expected: LibraryFormat) -> np.ndarray:
@@ -151,3 +166,6 @@ def orphan_compat_table(expected: LibraryFormat) -> np.ndarray:
 def format_names_paired() -> list[str]:
     return list(_OBS_PAIRED)
 
+
+def format_names_single() -> list[str]:
+    return list(_OBS_SINGLE)

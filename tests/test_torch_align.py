@@ -26,10 +26,11 @@ BW = 15
 SHIFT = 1280
 
 
-def problems(seed, n_txps=20, NR=40, L=64, P=300, n_frac=0.0):
+def problems(seed, n_txps=20, NR=40, L=64, P=300, n_frac=0.0, jitter=3):
     """Random transcripts and DP problems near, on and off their ends,
     with ragged reads, flip-style read_starts and read rows shared
-    between problems."""
+    between problems; aligned problems sit within `jitter` bases of
+    their read's origin."""
     rng = np.random.default_rng(seed)
     lens = rng.integers(100, 400, n_txps)
     off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
@@ -48,7 +49,7 @@ def problems(seed, n_txps=20, NR=40, L=64, P=300, n_frac=0.0):
         b = int(rng.integers(0, max(lens[t[p]] - rl[p], 1)))
         src = seq[off[t[p]] + b: off[t[p]] + b + rl[p]]
         reads[ids[p], rs[p]:rs[p] + src.shape[0]] = src
-        rb[p] = b - rs[p] + int(rng.integers(-3, 4))
+        rb[p] = b - rs[p] + int(rng.integers(-jitter, jitter + 1))
     return dict(seq=seq, reads=reads, ids=ids, rl=rl, rs=rs, rb=rb,
                 tl=lens[t].astype(np.int32), so=off[t])
 
@@ -89,6 +90,35 @@ def test_plain_dp_matches_jax_scan(kw, off_dtype):
     np.testing.assert_array_equal(got.numpy(), want)
     assert (want > 0).mean() > 0.1      # many problems really align
     assert ta.BANDED_DP.launches == launches   # CPU tensors never launch
+
+
+@pytest.mark.parametrize("kw", MODES, ids=MODE_IDS)
+@pytest.mark.parametrize("bw", [7, 40, 80])
+def test_plain_dp_matches_jax_scan_any_band(bw, kw):
+    """Other band half-widths than the main DP's 15: narrower, wider and
+    the rescue's 80 (B = 161), on the packed path. The last problems lie
+    wholly past their transcript's end, where every diagonal step pays
+    the OOB penalty and the best path runs through the NEG-seeded gap
+    cells instead."""
+    d = problems(bw, P=200, jitter=min(60, 3 * bw // 4))
+    d["rb"][-10:] = d["tl"][-10:] + bw + 20     # wholly past the end
+    words, _ = ja.pack_seq4(d["seq"], lead_pad=SHIFT)
+    want = np.asarray(ja.banded_scores_indexed(
+        jnp.asarray(d["reads"]), jnp.asarray(d["ids"]),
+        jnp.asarray(d["rl"]), jnp.asarray(d["rb"]), jnp.asarray(d["tl"]),
+        jnp.asarray(d["seq"]), jnp.asarray(d["so"]), bw, MA, MP, GO, GE,
+        seq_words=jnp.asarray(words), seq_words_shift=SHIFT,
+        read_starts=jnp.asarray(d["rs"]), **kw))
+    got = ta.banded_scores_indexed(
+        torch.from_numpy(d["reads"]), torch.from_numpy(d["ids"]),
+        torch.from_numpy(d["rl"]), torch.from_numpy(d["rb"]),
+        torch.from_numpy(d["tl"]), None, torch.from_numpy(d["so"]), bw,
+        MA, MP, GO, GE, seq_words=torch.from_numpy(words.view(np.int32)),
+        seq_words_shift=SHIFT, read_starts=torch.from_numpy(d["rs"]), **kw)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want > 0).mean() > 0.15
+    if not (kw.get("softclip") or kw.get("softclip_overhangs")):
+        assert (want[-10:] < 0).all()
 
 
 @pytest.mark.parametrize("kw", MODES, ids=MODE_IDS)
@@ -146,6 +176,36 @@ def test_known_scores():
     tail = np.concatenate([ref[40:], rng.integers(0, 4, 10)])
     assert score(tail, ref, base=40) == 2.0 * 10 - (GO + GE * 10)
     assert score(tail, ref, base=40, softclip_overhangs=True) == 20.0
+
+
+def test_kernel_fixed_bands_are_the_default_bands():
+    """csrc/banded_dp.cu compiles the main DP's and the rescue's default
+    bands with B fixed (kFixedBands), and chip_smoke.py times the kernel
+    at those two: the three must name the same bands, or a default path
+    would quietly run the slower runtime-band build."""
+    import os
+    import re
+
+    import chip_smoke
+    from salmon_tpu_torch.constants import DEFAULTS
+
+    src = os.path.join(os.path.dirname(ta.__file__), os.pardir, "csrc",
+                       "banded_dp.cu")
+    with open(src) as fh:
+        fixed = re.search(r"kFixedBands\[\] = \{([^}]*)\}", fh.read())
+    want = (DEFAULTS.dp_bandwidth, DEFAULTS.rescue_bandwidth)
+    assert tuple(int(b) for b in fixed.group(1).split(",")) == want
+    assert (chip_smoke.MAIN_BW, chip_smoke.RESCUE_BW) == want
+    assert max(want) <= ta.MAX_KERNEL_BANDWIDTH
+
+
+def test_kernel_counter_launches_sum_the_bands():
+    counter = ta.KernelCounter("dp")
+    for band in (15, 80, 15):
+        counter.add(band)
+    assert counter.by_shape == {15: 2, 80: 1} and counter.launches == 3
+    counter.reset()
+    assert counter.by_shape == {} and counter.launches == 0
 
 
 def test_fetch_windows_packed_matches():

@@ -18,7 +18,9 @@ from salmon_tpu_torch.mapping import align
 from salmon_tpu_torch.mapping.pipeline import _SEQ4_SHIFT
 
 MA, MP, GO, GE = 2.0, -4.0, 6.0, 2.0
-BW = 15
+# the main DP's band (15), narrower and wider ones, the rescue band (80)
+# and the widest the kernel takes (127)
+BANDWIDTHS = [7, 15, 40, 80, 127]
 MODES = [dict(), dict(softclip=True), dict(softclip_overhangs=True),
          dict(softclip=True, softclip_overhangs=True)]
 MODE_IDS = ["plain", "softclip", "overhangs", "softclip+overhangs"]
@@ -32,10 +34,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def dp_problems(seed: int, off_dtype, dev, n_txps=30, L=128, P=2000):
+def dp_problems(seed: int, off_dtype, dev, bw=15, n_txps=30, L=128,
+                P=2000):
     """Banded-DP arguments for P problems over random transcripts with N
     bases: ragged reads left- or flip-aligned, the first quarter placed
-    within 3 bases of where its read row came from, the rest at random
+    near where its read row came from (within 3 bases; for bands of 40
+    and more within 3/4 of the band, at most 60 as the rescue places
+    mates), the rest at random
     reference starts on, near and off the transcript ends, reading rows
     shared between problems (two ids out of range, which clip). Returns
     (args, kwargs) of banded_scores_indexed."""
@@ -58,7 +63,8 @@ def dp_problems(seed: int, off_dtype, dev, n_txps=30, L=128, P=2000):
         b = int(rng.integers(0, max(lens[t[p]] - rl[p], 1)))
         src = seq[off[t[p]] + b: off[t[p]] + b + rl[p]]
         reads[ids[p], rs[p]:rs[p] + src.shape[0]] = src
-        rb[p] = b - rs[p] + int(rng.integers(-3, 4))
+        jitter = 3 if bw < 40 else min(60, 3 * bw // 4)
+        rb[p] = b - rs[p] + int(rng.integers(-jitter, jitter + 1))
     ids[-2:] = (-1, NR)
 
     def put(a):
@@ -66,7 +72,7 @@ def dp_problems(seed: int, off_dtype, dev, n_txps=30, L=128, P=2000):
 
     args = (put(reads), put(ids), put(rl), put(rb),
             put(lens[t].astype(np.int32)), None, put(off[t].astype(off_dtype)),
-            BW, MA, MP, GO, GE)
+            bw, MA, MP, GO, GE)
     kwargs = dict(seq_words=put(words.view(np.int32)),
                   seq_words_shift=_SEQ4_SHIFT, read_starts=put(rs))
     return args, kwargs
@@ -75,14 +81,15 @@ def dp_problems(seed: int, off_dtype, dev, n_txps=30, L=128, P=2000):
 @pytest.mark.cuda
 @pytest.mark.parametrize("off_dtype", [np.int32, np.int64])
 @pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
-def test_banded_dp_kernel_matches_plain(cuda, mode, off_dtype):
-    args, kwargs = dp_problems(11, off_dtype, cuda)
+@pytest.mark.parametrize("bw", BANDWIDTHS)
+def test_banded_dp_kernel_matches_plain(cuda, bw, mode, off_dtype):
+    args, kwargs = dp_problems(11 + bw, off_dtype, cuda, bw=bw)
     kwargs.update(mode)
-    before = align.BANDED_DP.launches
+    before = align.BANDED_DP.by_shape.get(bw, 0)
     got = align.banded_scores_indexed(*args, **kwargs)
     want = align._banded_scores_plain(*args, **kwargs)
     torch.cuda.synchronize()
-    assert align.BANDED_DP.launches == before + 1
+    assert align.BANDED_DP.by_shape[bw] == before + 1
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
     assert (want > 0).float().mean().item() > 0.2   # a quarter align
 
@@ -91,8 +98,10 @@ def test_banded_dp_kernel_matches_plain(cuda, mode, off_dtype):
 def test_banded_dp_kernel_rejects_what_it_does_not_take(cuda):
     args, kwargs = dp_problems(12, np.int32, cuda, P=64)
     before = align.BANDED_DP.launches
-    with pytest.raises(NotImplementedError, match="bandwidth"):
-        align.banded_scores_indexed(*args[:7], 80, *args[8:], **kwargs)
+    limit = align.MAX_KERNEL_BANDWIDTH
+    with pytest.raises(ValueError, match=f"0 to {limit}, not {limit + 1}"):
+        align.banded_scores_indexed(*args[:7], limit + 1, *args[8:],
+                                    **kwargs)
     with pytest.raises(TypeError, match="read_ids"):
         align.banded_scores_indexed(args[0], args[1].long(), *args[2:],
                                     **kwargs)

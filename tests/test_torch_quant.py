@@ -1,9 +1,13 @@
-"""End to end: the port's CLI on tests/data against the golden fixture,
-the index handed over from the JAX package, the port's independence
-from JAX, and the options it does not have yet.
+"""End to end: the port's CLI on tests/data against the golden fixture
+and against the JAX package's CLI in the other mapping modes
+(single-end -r, --recoverOrphans, another --bandwidth), the index
+handed over from the JAX package, the port's independence from JAX,
+and the options it does not have yet.
 
 The golden tolerances are tests/test_golden.py's: quant.sf columns
-within rtol 5e-3 / atol 0.5, lib_format_counts field for field.
+within rtol 5e-3 / atol 0.5, lib_format_counts field for field. The
+same tolerance holds the port's quant.sf to the JAX CLI's: the two
+differ only through the tie order of ROADMAP queue 3.
 """
 
 import gzip
@@ -17,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from salmon_tpu import cli as jcli
 from salmon_tpu.index import builder as jb
 from salmon_tpu_torch import cli
 
@@ -41,15 +46,19 @@ def _parse_sf(lines):
     return rows
 
 
-def assert_golden(out_dir: str):
-    with gzip.open(os.path.join(GOLDEN, "quant.sf.gz"), "rt") as fh:
-        want = _parse_sf(fh.readlines())
-    with open(os.path.join(out_dir, "quant.sf")) as fh:
-        got = _parse_sf(fh.readlines())
+def assert_quant_sf_close(got_lines, want_lines):
+    got, want = _parse_sf(got_lines), _parse_sf(want_lines)
     assert set(got) == set(want)
     w = np.array([want[k] for k in sorted(want)])
     g = np.array([got[k] for k in sorted(want)])
     np.testing.assert_allclose(g, w, rtol=5e-3, atol=0.5)
+
+
+def assert_golden(out_dir: str):
+    with gzip.open(os.path.join(GOLDEN, "quant.sf.gz"), "rt") as fh:
+        want = fh.readlines()
+    with open(os.path.join(out_dir, "quant.sf")) as fh:
+        assert_quant_sf_close(fh.readlines(), want)
     with open(os.path.join(GOLDEN, "lib_format_counts.json")) as fh:
         want_fmt = json.load(fh)
     with open(os.path.join(out_dir, "lib_format_counts.json")) as fh:
@@ -91,7 +100,8 @@ def test_cli_quant_on_jax_built_index(tmp_path):
 
 
 def test_port_runs_without_jax(tmp_path):
-    """With jax unimportable, the port imports and runs index + quant."""
+    """With jax unimportable, the port imports and runs index + quant,
+    paired, single-end and with the rescue."""
     script = f"""
 import sys
 sys.modules["jax"] = None
@@ -103,6 +113,11 @@ assert cli.main(["index", "-t", {os.path.join(DATA, 'transcripts.fasta')!r},
                  "-i", idx, "-k", "31"]) == 0
 assert cli.main(["quant", "-i", idx, "-l", "A", *{READS!r}, "-o", out,
                  "-q"], device="cpu") == 0
+assert cli.main(["quant", "-i", idx, "-l", "A", "-r", {READS[1]!r}, "-o",
+                 out + "_se", "-q"], device="cpu") == 0
+assert cli.main(["quant", "-i", idx, "-l", "IU", *{READS!r},
+                 "--recoverOrphans", "-o", out + "_rescue", "-q"],
+                device="cpu") == 0
 assert not any(m == "jax" or m.startswith(("jax.", "salmon_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 """
@@ -138,9 +153,54 @@ def test_cli_quant_needs_cuda_by_default(port_index, tmp_path):
                   "-o", str(tmp_path / "q"), "-q"])
 
 
+MODES = {
+    "single-end": ["-l", "A", "-r", os.path.join(DATA, "reads_1.fastq")],
+    "recoverOrphans": ["-l", "IU", *READS, "--recoverOrphans"],
+    "bandwidth-25": ["-l", "IU", *READS, "--bandwidth", "25"],
+}
+
+
+@pytest.fixture(scope="module")
+def jax_index(tmp_path_factory):
+    idx = str(tmp_path_factory.mktemp("jax_idx") / "idx")
+    jb.save_index(jb.build_index(os.path.join(DATA, "transcripts.fasta"),
+                                 k=31), idx)
+    return idx
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_cli_quant_matches_jax_cli(jax_index, tmp_path, mode):
+    """Both CLIs on one index, in a mapping mode beyond the golden
+    fixture's: quant.sf within the golden tolerance, the mapping
+    counters and library-format counts equal."""
+    flags = [*MODES[mode], "-q", "--no-version-check"]
+    outs = {}
+    for name, main, kw in (("port", cli.main, {"device": "cpu"}),
+                           ("jax", jcli.main, {})):
+        outs[name] = str(tmp_path / name)
+        assert main(["quant", "-i", jax_index, *flags, "-o", outs[name]],
+                    **kw) == 0
+    files = {}
+    for name, out in outs.items():
+        with open(os.path.join(out, "quant.sf")) as fh:
+            sf = fh.readlines()
+        with open(os.path.join(out, "aux_info", "meta_info.json")) as fh:
+            meta = json.load(fh)
+        with open(os.path.join(out, "lib_format_counts.json")) as fh:
+            fmt = json.load(fh)
+        files[name] = (sf, meta, fmt)
+    (sf, meta, fmt), (jsf, jmeta, jfmt) = files["port"], files["jax"]
+    assert_quant_sf_close(sf, jsf)
+    for key in ("num_processed", "num_mapped", "num_orphans_rescued",
+                "library_types", "num_decoy_fragments"):
+        assert meta[key] == jmeta[key], key
+    assert fmt == jfmt
+    if mode == "single-end":
+        assert meta["library_types"] in (["U"], ["SF"], ["SR"])
+        assert set(fmt) >= {"SF", "SR"} and "ISF" not in fmt
+
+
 UNPORTED = [
-    (["-r", os.path.join(DATA, "reads_1.fastq")], {}),
-    (["--recoverOrphans"], {}),
     (["--numBootstraps", "2"], {}),
     (["--numGibbsSamples", "2"], {}),
     (["--seqBias"], {}),
@@ -161,9 +221,8 @@ def test_unported_options_raise(port_index, tmp_path, monkeypatch, flags,
                                 env):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    reads = [] if "-r" in flags else READS
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["quant", "-i", port_index, "-l", "IU", *reads, *flags,
+        cli.main(["quant", "-i", port_index, "-l", "IU", *READS, *flags,
                   "-o", str(tmp_path / "q"), "-q"], device="cpu")
 
 
