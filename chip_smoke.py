@@ -9,7 +9,8 @@ Phases, one line each; any failure raises and exits non-zero:
   3. kernels — each kernel against its plain torch version on the card,
                in every mode: banded_dp at the main DP's band (15) and
                shapes, at the rescue's band (80) and shapes, and at
-               bands 40 and 7; times and bound for each
+               bands 40 and 7; the kernel's time (launches through its
+               C entry), the plain version's time and the bound for each
   4. golden  — `index` + `quant -l IU` of tests/data through the CLI,
                held to tests/data/golden like tests/test_golden.py; then
                single-end `quant -l A -r reads_1.fastq` on the card, held
@@ -71,12 +72,13 @@ MAIN_BW, RESCUE_BW = 15, 80
 # cores, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-# fp32 add/max operations per band cell and read row that the DP's
-# function needs: F 4, H 2, X 1, E 2, running max 1, and 2 for the
+# add/max operations per band cell and read row that the DP's function
+# needs: F 4, H 2, X 1, E 2, running max 1, and 2 for the
 # gap-in-reference prefix done as a running max, E[d] = max(X[d],
-# E[d-1] - ge); softclip adds one max. The kernel's Kogge-Stone scan
-# spends 2 per step (2 ceil(log2 B) per cell): that is its choice of
-# algorithm, not work the function requires, so the bound leaves it out
+# E[d-1] - ge); softclip adds one max. Counted against the fp32 peak
+# (the kernel computes in int32 on DPX add-max, which fuses two of them;
+# the count and the peak stay as they were, so that bounds compare
+# across versions of the kernel)
 DP_OPS_PER_CELL = 12
 
 
@@ -204,6 +206,25 @@ def dp_bound_ms(inp: dict, bw: int, softclip: bool) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def dp_launch(lib, inp: dict, bw: int, out, softclip: bool = False,
+              softclip_overhangs: bool = False) -> int:
+    """One launch of a banded-DP build (lib, bound by
+    align.bind_banded_dp) on dp_inputs' tensors, through the C interface
+    the wrapper calls but without its Python checks, whose host time
+    exceeds a launch of ~0.03 ms. Returns the C entry's code."""
+    import torch
+    return lib.banded_dp_scores(
+        inp["reads"].data_ptr(), inp["reads"].shape[0],
+        inp["reads"].shape[1], inp["read_ids"].data_ptr(),
+        inp["read_lens"].data_ptr(), inp["ref_base"].data_ptr(),
+        inp["txp_lens"].data_ptr(), inp["read_starts"].data_ptr(),
+        inp["seq_off"].data_ptr(), int(inp["seq_off"].dtype == torch.int64),
+        inp["seq_words"].data_ptr(), inp["seq_words"].shape[0],
+        inp["seq_words_shift"], inp["read_ids"].shape[0], bw, 2, -4, 6, 2,
+        0 if softclip_overhangs else -1000, int(softclip), out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+
+
 # (band, problems, placement jitter, cases); a case is (name, kernel
 # options, ragged read lengths, int64 transcript offsets). The first
 # case of a band gives its record's times.
@@ -240,8 +261,10 @@ def kernel_phase() -> dict:
     """banded_dp against its plain version at every band of DP_CASES.
     Returns {band: record} for the bands the main paths run."""
     import torch
+    from salmon_tpu_torch import _cuda
     from salmon_tpu_torch.mapping import align
 
+    lib = align.bind_banded_dp(_cuda.load("banded_dp"))
     records = {}
     seed = 100
     for bw, P, jitter, cases in DP_CASES:
@@ -277,14 +300,23 @@ def kernel_phase() -> dict:
                 raise AssertionError(f"banded_dp bw {bw} {name}: only "
                                      f"{aligned} of the problems align")
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
-            ms = _cuda_ms(lambda: align.banded_scores_indexed(*args, **kw),
-                          20)
+            # the kernel alone: launches straight through its C entry
+            out = torch.empty_like(got)
+            mode = {k: kw[k] for k in ("softclip", "softclip_overhangs")
+                    if k in kw}
+            assert dp_launch(lib, inp, bw, out, **mode) == 0
+            torch.cuda.synchronize()
+            assert torch.equal(out, got)
+            ms = _cuda_ms(lambda: dp_launch(lib, inp, bw, out, **mode), 20)
+            call_ms = _cuda_ms(
+                lambda: align.banded_scores_indexed(*args, **kw), 20)
             plain_ms = _cuda_ms(
                 lambda: align._banded_scores_plain(*args, **kw), 3)
             bound, by = dp_bound_ms(inp, bw, kw.get("softclip", False))
             phase("kernels", f"banded_dp bw {bw} {name} (P = {P}): exact "
                   f"on {int(ok.sum())}/{ok.numel()} problems, "
-                  f"{aligned:.3f} aligned; kernel {ms!r} ms, plain "
+                  f"{aligned:.3f} aligned; kernel {ms!r} ms ({call_ms!r} "
+                  f"ms a wrapper call), plain "
                   f"{plain_ms!r} ms, bound {bound!r} ms ({by})")
             if "ms" not in rec:
                 rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
@@ -589,6 +621,11 @@ def profile_phase(syn: str, n_batches: int = 6) -> None:
           f"{busy_s / n_batches * 1e3!r} ms/batch, idle share "
           f"{1 - busy_s / wall!r}, {launches / n_batches!r} kernel "
           f"launches/batch")
+    dp = [e for e in kernels if "banded_dp_kernel" in e.key]
+    dp_s = sum(e.self_device_time_total for e in dp) / 1e6
+    phase("profile", f"banded_dp: {dp_s / n_batches * 1e3!r} ms/batch, "
+          f"{sum(e.count for e in dp) / n_batches!r} launches/batch, "
+          f"{dp_s / busy_s!r} of device busy time")
     for e in kernels[:8]:
         phase("profile", f"kernel {e.key[:60]}: "
               f"{e.self_device_time_total / 1e3 / n_batches!r} ms/batch, "

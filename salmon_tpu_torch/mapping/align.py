@@ -13,9 +13,10 @@ position `pos`, the state is H[i, d] for band offset d in [-bw, bw]
                                 a Kogge-Stone shift-max cascade
 
 Two implementations of one function:
-  * the CUDA kernel csrc/banded_dp.cu (one warp per problem, any band
-    half-width up to MAX_KERNEL_BANDWIDTH), launched for CUDA tensors;
-    it fuses the read-row gather and the 2-bit window fetch;
+  * the CUDA kernel csrc/banded_dp.cu (int32 cells, G lanes per
+    problem, any band half-width up to MAX_KERNEL_BANDWIDTH), launched
+    for CUDA tensors; it fuses the read-row gather and the 2-bit window
+    fetch, and takes integer scores only (`integer_scores`);
   * `_banded_scores_plain`, a torch port of the JAX package's lax.scan
     DP, run for CPU tensors and used as the kernel's reference.
 Scores are small integer sums in float32, so the two agree exactly.
@@ -24,6 +25,7 @@ Scores are small integer sums in float32, so the two agree exactly.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -34,6 +36,8 @@ OOB_PENALTY = -1000.0  # aligning outside the transcript (overhang)
 #: largest band half-width the CUDA kernel takes: B = 2*bw + 1 cells
 #: held 8 to a lane across one warp (csrc/banded_dp.cu)
 MAX_KERNEL_BANDWIDTH = 127
+#: the kernel's scores are int32 and must stay far from its NEG = -1e9
+SCORE_LIMIT = 2 ** 20
 
 
 class KernelCounter:
@@ -198,14 +202,32 @@ def _check(t: torch.Tensor, name: str, dtypes, ndim: int, dev):
         raise ValueError(f"{name} must be a contiguous {ndim}-D tensor")
 
 
-def bind_banded_dp(lib: ctypes.CDLL) -> ctypes.CDLL:
+def integer_scores(*scores) -> tuple:
+    """The DP scores (ma, mp, go, ge, oob) as Python ints, for the
+    kernel's int32 cells. Raises ValueError on a score that is not an
+    integer or whose magnitude is SCORE_LIMIT or more."""
+    out = []
+    for s in scores:
+        f = float(s)
+        if not (math.isfinite(f) and f == int(f) and abs(f) < SCORE_LIMIT):
+            raise ValueError(
+                f"the banded-DP kernel takes integer scores of magnitude "
+                f"below {SCORE_LIMIT}, not {s!r}")
+        out.append(int(f))
+    return tuple(out)
+
+
+def bind_banded_dp(lib: ctypes.CDLL, float_scores: bool = False
+                   ) -> ctypes.CDLL:
     """Declare the C interface of a library built from csrc/banded_dp.cu
-    (banded_dp_scores and banded_dp_error_string) on `lib`."""
-    vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-                         ctypes.c_float)
+    (banded_dp_scores and banded_dp_error_string) on `lib`. The kernel
+    takes int scores; `float_scores` declares the float ones of builds
+    from before the int32 redesign (tools/compare_banded_dp.py)."""
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    sc = ctypes.c_float if float_scores else i32
     lib.banded_dp_scores.argtypes = [
         vp, i64, i32, vp, vp, vp, vp, vp, vp, i32, vp, i64, i32, i32, i32,
-        f32, f32, f32, f32, f32, i32, vp, vp]
+        sc, sc, sc, sc, sc, i32, vp, vp]
     lib.banded_dp_scores.restype = i32
     lib.banded_dp_error_string.argtypes = [i32]
     lib.banded_dp_error_string.restype = ctypes.c_char_p
@@ -218,6 +240,8 @@ def _banded_dp_cuda(reads, read_ids, read_lens, ref_base, txp_lens,
                     softclip: bool, softclip_overhangs: bool,
                     read_starts) -> torch.Tensor:
     """Launch csrc/banded_dp.cu on the current stream."""
+    ma, mp, go, ge, oob = integer_scores(
+        ma, mp, go, ge, 0.0 if softclip_overhangs else OOB_PENALTY)
     if not 0 <= bandwidth <= MAX_KERNEL_BANDWIDTH:
         raise ValueError(
             f"the banded-DP kernel takes band half-widths 0 to "
@@ -260,9 +284,7 @@ def _banded_dp_cuda(reads, read_ids, read_lens, ref_base, txp_lens,
                 read_starts.data_ptr(), seq_off.data_ptr(),
                 int(seq_off.dtype == torch.int64), seq_words.data_ptr(),
                 seq_words.shape[0], seq_words_shift, P, bandwidth,
-                ma, mp, go, ge,
-                0.0 if softclip_overhangs else OOB_PENALTY,
-                int(softclip), out.data_ptr(), stream)
+                ma, mp, go, ge, oob, int(softclip), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError("banded_dp kernel launch failed: "
                            + lib.banded_dp_error_string(rc).decode())

@@ -7,7 +7,8 @@ has no JAX:
 
 (--noconftest leaves out tests/conftest.py, which sets up JAX for the
 other test files.) Banded-DP scores are small integer sums in float32,
-so kernel and plain version must agree exactly.
+and the kernel computes them in int32, so kernel and plain version must
+agree exactly.
 """
 
 import numpy as np
@@ -19,8 +20,9 @@ from salmon_tpu_torch.mapping.pipeline import _SEQ4_SHIFT
 
 MA, MP, GO, GE = 2.0, -4.0, 6.0, 2.0
 # the main DP's band (15), narrower and wider ones, the rescue band (80)
-# and the widest the kernel takes (127)
-BANDWIDTHS = [7, 15, 40, 80, 127]
+# and the widest the kernel takes (127); 0, 1, 16, 31 and 32 put B = 2 bw
+# + 1 at the edges of the kernel's cells per lane (C) and lanes (G)
+BANDWIDTHS = [0, 1, 7, 15, 16, 31, 32, 40, 80, 127]
 MODES = [dict(), dict(softclip=True), dict(softclip_overhangs=True),
          dict(softclip=True, softclip_overhangs=True)]
 MODE_IDS = ["plain", "softclip", "overhangs", "softclip+overhangs"]
@@ -38,10 +40,10 @@ def dp_problems(seed: int, off_dtype, dev, bw=15, n_txps=30, L=128,
                 P=2000):
     """Banded-DP arguments for P problems over random transcripts with N
     bases: ragged reads left- or flip-aligned, the first quarter placed
-    near where its read row came from (within 3 bases; for bands of 40
-    and more within 3/4 of the band, at most 60 as the rescue places
-    mates), the rest at random
-    reference starts on, near and off the transcript ends, reading rows
+    near where its read row came from (within 3 bases, at most the band;
+    for bands of 40 and more within 3/4 of the band, at most 60 as the
+    rescue places mates), the rest at random reference starts on, near
+    and off the transcript ends, reading rows
     shared between problems (two ids out of range, which clip). Returns
     (args, kwargs) of banded_scores_indexed."""
     rng = np.random.default_rng(seed)
@@ -63,7 +65,7 @@ def dp_problems(seed: int, off_dtype, dev, bw=15, n_txps=30, L=128,
         b = int(rng.integers(0, max(lens[t[p]] - rl[p], 1)))
         src = seq[off[t[p]] + b: off[t[p]] + b + rl[p]]
         reads[ids[p], rs[p]:rs[p] + src.shape[0]] = src
-        jitter = 3 if bw < 40 else min(60, 3 * bw // 4)
+        jitter = min(3, bw) if bw < 40 else min(60, 3 * bw // 4)
         rb[p] = b - rs[p] + int(rng.integers(-jitter, jitter + 1))
     ids[-2:] = (-1, NR)
 
@@ -108,4 +110,17 @@ def test_banded_dp_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="read_lens"):
         align.banded_scores_indexed(*args[:2], args[2][:-1], *args[3:],
                                     **kwargs)
+    assert align.BANDED_DP.launches == before
+
+
+@pytest.mark.cuda
+def test_banded_dp_kernel_refuses_non_integer_scores(cuda):
+    """The kernel's cells are int32: a fractional score (--ma 2.5) or one
+    of magnitude 2^20 or more is refused before any launch."""
+    args, kwargs = dp_problems(13, np.int32, cuda, P=64)
+    before = align.BANDED_DP.launches
+    with pytest.raises(ValueError, match="integer scores"):
+        align.banded_scores_indexed(*args[:8], 2.5, *args[9:], **kwargs)
+    with pytest.raises(ValueError, match=str(2 ** 20)):
+        align.banded_scores_indexed(*args[:11], float(2 ** 20), **kwargs)
     assert align.BANDED_DP.launches == before
