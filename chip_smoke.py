@@ -15,22 +15,33 @@ Phases, one line each; any failure raises and exits non-zero:
                held to tests/data/golden like tests/test_golden.py; then
                single-end `quant -l A -r reads_1.fastq` on the card, held
                to the truth in the read names and to the same command
-               run by the port on the CPU; and --recoverOrphans on 32
-               pairs whose right mates only the rescue can place
+               run by the port on the CPU; --recoverOrphans on 32
+               pairs whose right mates only the rescue can place; and
+               the sample pairs with --seqBias --gcBias --posBias, with
+               --numBootstraps 16 and with --numGibbsSamples 16, each on
+               the card against the port's CPU run (observed bias dumps
+               equal, expected dumps and bootstraps within stated
+               tolerances, Gibbs draws integral and conserving the eq
+               classes' total)
   5. scale   — `index` + `quant -l A` of a 5,000-transcript /
                200,000-pair synthetic set (scripts/make_synthetic_txome.py)
-               in three modes: paired, single-end (-r reads_1) and paired
-               with --recoverOrphans. For each: fragments (reads) per
-               second, mapping rate, DP launches per batch and band, and
-               Spearman of NumReads against the truth in the read names,
-               gated at the JAX package's value minus 0.01
+               in six modes: paired, single-end (-r reads_1), paired with
+               --recoverOrphans, with --seqBias --gcBias, with
+               --numBootstraps 30 and with --numGibbsSamples 32. For
+               each: fragments (reads) per second, mapping rate, DP
+               launches per batch and band, and Spearman of NumReads
+               against the truth in the read names, gated at the JAX
+               package's value minus 0.01; the bias mode's stage clocks
+               and moved effective lengths, the draws' checks and the
+               sampling clock
 Every mode runs through the CLI with the launch counts set to 0 just
 before it and read just after. The kernels JSON line (one record per
 band the main paths run: 15, and 80 for the rescue) and the card's name
 and power limit come before the last line, which is {"ok": true,
 "device": {...}}. Imports nothing of JAX or salmon_tpu. --profile adds
 a phase 6: where the time of the paired scale quant goes, by
-quantify's own clocks and a torch.profiler breakdown of a few batches.
+quantify's own clocks and a torch.profiler breakdown of a few batches,
+and the clocks and device busy time of the bias passes and the draws.
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ from __future__ import annotations
 import collections
 import gzip
 import json
+import logging
 import math
 import os
 import subprocess
@@ -57,6 +69,8 @@ DATA = os.path.join(REPO, "tests", "data")
 JAX_SPEARMAN_5K = 0.9993151108089
 JAX_SPEARMAN_5K_SINGLE = 0.9922372116579615
 JAX_SPEARMAN_5K_RESCUE = 0.9992805249685751
+# paired with --seqBias --gcBias (tools/jax_reference_5k.py --modes bias)
+JAX_SPEARMAN_5K_BIAS = 0.9993151132706852
 # num_orphans_rescued of that --recoverOrphans run, and how far the port
 # may be from it (5 %): the rescue probes an orphan's first hit, and
 # where orphan hits tie on score the two packages may rank another one
@@ -67,6 +81,7 @@ SCALE_TXPS = 5000
 SCALE_PAIRS = 200_000
 BATCH = 4096            # reads per batch (the default --readBatchSize)
 MAIN_BW, RESCUE_BW = 15, 80
+SCALE_BOOTSTRAPS, SCALE_GIBBS = 30, 32   # draws in phase 5
 
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores, and HBM3 bandwidth
@@ -360,20 +375,40 @@ def spearman(quant_sf: str, truth) -> float:
                                        for n in names]).statistic)
 
 
-def run_quant(argv: list, device=None) -> tuple[dict, float]:
+class StageClocks(logging.Handler):
+    """Collects the stage clocks that the port logs with its records
+    (extra={"clocks": {...}}: the bias collection and passes, the second
+    EM, posterior sampling)."""
+
+    def __init__(self):
+        super().__init__()
+        self.clocks = {}
+
+    def emit(self, record):
+        self.clocks.update(getattr(record, "clocks", {}))
+
+
+def run_quant(argv: list, device=None) -> tuple[dict, float, dict]:
     """One `quant` through the CLI with the banded_dp launch counts set
-    to 0 just before it. Returns (launches by band, seconds)."""
+    to 0 just before it. Returns (launches by band, seconds, the stage
+    clocks the port logged)."""
     import torch
     from salmon_tpu_torch import cli
     from salmon_tpu_torch.mapping.align import BANDED_DP
 
-    BANDED_DP.reset()
-    t0 = time.perf_counter()
-    assert cli.main(["quant", *argv, "-q"], device=device) == 0
-    if device is None:
-        torch.cuda.synchronize()
-    sec = time.perf_counter() - t0
-    return dict(BANDED_DP.by_shape), sec
+    clocks = StageClocks()
+    log = logging.getLogger("salmon_tpu_torch")
+    log.addHandler(clocks)
+    try:
+        BANDED_DP.reset()
+        t0 = time.perf_counter()
+        assert cli.main(["quant", *argv, "-q"], device=device) == 0
+        if device is None:
+            torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    finally:
+        log.removeHandler(clocks)
+    return dict(BANDED_DP.by_shape), sec, clocks.clocks
 
 
 def golden_phase(tmp: str) -> str:
@@ -383,10 +418,10 @@ def golden_phase(tmp: str) -> str:
     idx, out = os.path.join(tmp, "g_idx"), os.path.join(tmp, "g_quant")
     assert cli.main(["index", "-t", os.path.join(DATA, "transcripts.fasta"),
                      "-i", idx, "-k", "31"]) == 0
-    launches, _ = run_quant(["-i", idx, "-l", "IU",
-                             "-1", os.path.join(DATA, "reads_1.fastq"),
-                             "-2", os.path.join(DATA, "reads_2.fastq"),
-                             "-o", out])
+    launches, _, _ = run_quant(["-i", idx, "-l", "IU",
+                                "-1", os.path.join(DATA, "reads_1.fastq"),
+                                "-2", os.path.join(DATA, "reads_2.fastq"),
+                                "-o", out])
     with gzip.open(os.path.join(DATA, "golden", "quant.sf.gz"), "rt") as fh:
         want = _parse_sf(fh.readlines())
     with open(os.path.join(out, "quant.sf")) as fh:
@@ -414,22 +449,13 @@ def golden_single_phase(idx: str, tmp: str) -> None:
     """Single-end quant of the sample's first reads on the card: held to
     the truth in the read names (tests/test_library_modes.py's gate) and
     to the port's own CPU run of the same command."""
-    import numpy as np
-
     reads = os.path.join(DATA, "reads_1.fastq")
     outs = {d: os.path.join(tmp, f"g_single_{d}") for d in ("cuda", "cpu")}
-    launches, sec = run_quant(["-i", idx, "-l", "A", "-r", reads,
-                               "-o", outs["cuda"]])
+    launches, sec, _ = run_quant(["-i", idx, "-l", "A", "-r", reads,
+                                  "-o", outs["cuda"]])
     run_quant(["-i", idx, "-l", "A", "-r", reads, "-o", outs["cpu"]],
               device="cpu")
-    sf = {}
-    for d, out in outs.items():
-        with open(os.path.join(out, "quant.sf")) as fh:
-            sf[d] = _parse_sf(fh.readlines())
-    assert set(sf["cuda"]) == set(sf["cpu"])
-    g = np.array([sf["cuda"][k] for k in sorted(sf["cpu"])])
-    w = np.array([sf["cpu"][k] for k in sorted(sf["cpu"])])
-    np.testing.assert_allclose(g, w, rtol=5e-3, atol=0.5)
+    diff = sf_close(outs["cuda"], outs["cpu"])
     rho = spearman(os.path.join(outs["cuda"], "quant.sf"),
                    read_truth(reads))
     meta = json.load(open(os.path.join(outs["cuda"], "aux_info",
@@ -442,8 +468,7 @@ def golden_single_phase(idx: str, tmp: str) -> None:
           f"vs truth {rho!r} (gate 0.97), library {meta['library_types']}, "
           f"mapped {meta['percent_mapped']!r}%, quant.sf within rtol 5e-3 "
           f"/ atol 0.5 of the port's CPU run (max |diff| "
-          f"{np.abs(g - w).max():.4f}); {sec:.2f} s; banded_dp launches "
-          f"{launches}")
+          f"{diff:.4f}); {sec:.2f} s; banded_dp launches {launches}")
 
 
 def golden_rescue_phase(idx: str, tmp: str) -> None:
@@ -471,28 +496,201 @@ def golden_rescue_phase(idx: str, tmp: str) -> None:
             for fh, c in ((f1, left), (f2, right)):
                 fh.write(f"@p{i}\n{''.join('ACGTN'[x] for x in c)}\n+\n"
                          f"{'I' * RL}\n")
-    meta, sf = {}, {}
+    meta, outs = {}, {}
     for device in (None, "cpu"):
         out = os.path.join(tmp, f"g_rescue_{device or 'cuda'}")
-        launches, _ = run_quant(["-i", idx, "-l", "IU", "-1", paths[0],
-                                 "-2", paths[1], "--recoverOrphans",
-                                 "-o", out], device=device)
+        launches, _, _ = run_quant(["-i", idx, "-l", "IU", "-1", paths[0],
+                                    "-2", paths[1], "--recoverOrphans",
+                                    "-o", out], device=device)
         if device is None:
             card_launches = launches
         meta[device] = json.load(open(os.path.join(out, "aux_info",
                                                    "meta_info.json")))
-        with open(os.path.join(out, "quant.sf")) as fh:
-            sf[device] = _parse_sf(fh.readlines())
+        outs[device] = out
     rescued = meta[None]["num_orphans_rescued"]
     assert rescued == meta["cpu"]["num_orphans_rescued"] >= 25, \
         (rescued, meta["cpu"]["num_orphans_rescued"])
-    g = np.array([sf[None][k] for k in sorted(sf["cpu"])])
-    w = np.array([sf["cpu"][k] for k in sorted(sf["cpu"])])
-    np.testing.assert_allclose(g, w, rtol=5e-3, atol=0.5)
+    sf_close(outs[None], outs["cpu"])
     assert card_launches == {MAIN_BW: 1, RESCUE_BW: 1}, card_launches
     phase("golden", f"--recoverOrphans on 32 pairs with unseedable right "
           f"mates: {rescued} rescued on the card and on the CPU (gate "
           f"25); banded_dp launches {card_launches}")
+
+
+def sf_close(got_dir: str, want_dir: str) -> float:
+    """quant.sf of two runs within rtol 5e-3 / atol 0.5 (the golden
+    tolerance); returns the largest difference."""
+    import numpy as np
+    sf = []
+    for d in (got_dir, want_dir):
+        with open(os.path.join(d, "quant.sf")) as fh:
+            sf.append(_parse_sf(fh.readlines()))
+    got, want = sf
+    assert set(got) == set(want)
+    g = np.array([got[k] for k in sorted(want)])
+    w = np.array([want[k] for k in sorted(want)])
+    np.testing.assert_allclose(g, w, rtol=5e-3, atol=0.5)
+    return float(np.abs(g - w).max())
+
+
+def eq_total(out: str) -> int:
+    """Fragments in the equivalence classes of a --dumpEq run."""
+    with gzip.open(os.path.join(out, "aux_info", "eq_classes.txt.gz"),
+                   "rt") as fh:
+        n_txps, n_classes = int(fh.readline()), int(fh.readline())
+        for _ in range(n_txps):
+            fh.readline()
+        return sum(int(fh.readline().rsplit("\t", 1)[1])
+                   for _ in range(n_classes))
+
+
+def check_draws(out: str, n_draws: int, gibbs: bool) -> tuple:
+    """Posterior draws of one run: n_draws rows over quant.sf's
+    transcripts; Gibbs draws integral with every total equal to the eq
+    classes' total, bootstrap totals within 0.1 % of the resampled total
+    (the quant's assigned reads); the draws' mean ranks transcripts as
+    NumReads does (Spearman >= 0.99). Returns (Spearman, largest
+    relative deviation of a draw's total)."""
+    import numpy as np
+    from scipy.stats import spearmanr
+    from salmon_tpu_torch.io.writers import read_bootstraps
+
+    names, draws = read_bootstraps(out)
+    with open(os.path.join(out, "quant.sf")) as fh:
+        rows = _parse_sf(fh.readlines())
+    assert names == list(rows), "names.tsv.gz differs from quant.sf"
+    assert draws.shape == (n_draws, len(names)), draws.shape
+    assert np.isfinite(draws).all() and (draws >= 0).all()
+    num_reads = np.array([rows[n][2] for n in names])
+    meta = json.load(open(os.path.join(out, "aux_info", "meta_info.json")))
+    assert meta["samp_type"] == ("gibbs" if gibbs else "bootstrap"), meta
+    assert meta["num_bootstraps"] == n_draws, meta
+    if gibbs:
+        assert (draws == np.round(draws)).all(), "a Gibbs draw is not integral"
+        total = eq_total(out)
+        assert (draws.sum(axis=1) == total).all(), (draws.sum(axis=1), total)
+    else:
+        total = num_reads.sum()
+        assert np.abs(draws.sum(axis=1) / total - 1).max() <= 1e-3
+    rho = float(spearmanr(draws.mean(axis=0), num_reads).statistic)
+    assert rho >= 0.99, rho
+    return rho, float(np.abs(draws.sum(axis=1) / total - 1).max())
+
+
+# exp*_{seq,gc,pos} dumps, card against CPU: float32 sums of up to ~3e4
+# terms per bin, added by atomics on the card and in sequence on the
+# CPU: ~sqrt(n) 2^-24 ~ 1e-5 apart; ten times that
+EXP_RTOL = 1e-4
+# bootstrap draws, card against CPU: a replicate whose last relative
+# change sits on the 1e-2 stopping threshold may stop one iteration
+# apart on the two devices, which moves a transcript by up to ~1e-2
+BOOT_RTOL, BOOT_ATOL = 2e-2, 1.0
+
+
+def golden_bias_sampling_phase(idx: str, tmp: str) -> None:
+    """The sample pairs with bias correction and with posterior draws,
+    each on the card and in the port's CPU run: quant.sf within the
+    golden tolerance of the CPU's; observed bias dumps equal, expected
+    dumps within EXP_RTOL, the bias meta keys and aux_target_ids.json as
+    asked; bootstraps within BOOT_RTOL / BOOT_ATOL of the CPU's; Gibbs
+    draws checked by check_draws on both devices."""
+    import numpy as np
+    from salmon_tpu_torch.io.writers import read_bootstraps, read_matrix_gz
+
+    reads = ["-1", os.path.join(DATA, "reads_1.fastq"),
+             "-2", os.path.join(DATA, "reads_2.fastq")]
+    aux_file = os.path.join(tmp, "aux_targets.txt")
+    with open(aux_file, "w") as fh:
+        fh.write("NM_014620\n")
+    runs = [  # (name, flags, draws)
+        ("bias", ["--seqBias", "--gcBias", "--posBias"], 0),
+        ("bias-corrected", ["--seqBias", "--posBiasCorrected",
+                            "--auxTargetFile", aux_file], 0),
+        ("bootstrap", ["--numBootstraps", "16"], 16),
+        ("bootstrap-reproject", ["--numBootstraps", "8",
+                                 "--bootstrapReproject", "--seed", "7"], 8),
+        ("gibbs", ["--numGibbsSamples", "16", "--thinningFactor", "4",
+                   "--dumpEq"], 16),
+        ("gibbs-noGammaDraw", ["--numGibbsSamples", "8", "--thinningFactor",
+                               "2", "--noGammaDraw", "--dumpEq"], 8),
+    ]
+    for name, flags, n_draws in runs:
+        outs = {}
+        for device in (None, "cpu"):
+            outs[device] = os.path.join(tmp, f"g_{name}_{device or 'cuda'}")
+            launches, sec, clocks = run_quant(
+                ["-i", idx, "-l", "IU", *reads, *flags, "-o",
+                 outs[device]], device=device)
+            if device is None:
+                card = (launches, sec, clocks)
+        launches, sec, clocks = card
+        assert launches.get(MAIN_BW, 0) > 0 and set(launches) == {MAIN_BW}, \
+            f"the golden {name} quant launched banded_dp {launches}"
+        diff = sf_close(outs[None], outs["cpu"])
+        aux = {d: os.path.join(o, "aux_info") for d, o in outs.items()}
+        meta = json.load(open(os.path.join(aux[None], "meta_info.json")))
+        if name.startswith("bias"):
+            seq, gc = "--seqBias" in flags, "--gcBias" in flags
+            corrected = "--posBiasCorrected" in flags
+            pos = corrected or "--posBias" in flags
+            assert (meta["seq_bias_correct"], meta["gc_bias_correct"],
+                    meta["pos_bias_correct"]) == (seq, gc, pos), meta
+            assert meta["pos_bias_mode"] == (
+                "corrected" if corrected else "reference-parity"), meta
+            dumps = ((["5_seq.gz", "3_seq.gz"] if seq else [])
+                     + (["_gc.gz"] if gc else [])
+                     + (["5_pos.gz", "3_pos.gz"] if pos else []))
+            exp_err = 0.0
+            for dump in dumps:
+                g, w = (read_matrix_gz(os.path.join(aux[d], "obs" + dump))
+                        for d in (None, "cpu"))
+                assert g.sum() > 0 and np.array_equal(g, w), "obs" + dump
+                g, w = (read_matrix_gz(os.path.join(aux[d], "exp" + dump))
+                        for d in (None, "cpu"))
+                np.testing.assert_allclose(g, w, rtol=EXP_RTOL,
+                                           err_msg="exp" + dump)
+                exp_err = max(exp_err, float(
+                    (np.abs(g - w) / np.maximum(np.abs(w), 1e-30)).max()))
+            extra = (f"{len(dumps)} observed dumps equal, expected dumps "
+                     f"within rel {exp_err!r} (gate {EXP_RTOL})")
+            if "--auxTargetFile" in flags:
+                ids = [json.load(open(os.path.join(
+                    aux[d], "aux_target_ids.json"))) for d in (None, "cpu")]
+                assert ids[0] == ids[1] and ids[0]["aux_target_ids"], ids
+                extra += f"; aux_target_ids.json {ids[0]} on both"
+        elif name.startswith("bootstrap"):
+            check_draws(outs[None], n_draws, gibbs=False)
+            (nc, bc), (nw, bw) = (read_bootstraps(outs[d])
+                                  for d in (None, "cpu"))
+            assert nc == nw
+            np.testing.assert_allclose(bc, bw, rtol=BOOT_RTOL,
+                                       atol=BOOT_ATOL)
+            extra = (f"bootstraps within max |diff| "
+                     f"{np.abs(bc - bw).max():.4f} of the CPU's (gate "
+                     f"rtol {BOOT_RTOL} / atol {BOOT_ATOL})")
+        else:
+            rho, _ = check_draws(outs[None], n_draws, gibbs=True)
+            rho_cpu, _ = check_draws(outs["cpu"], n_draws, gibbs=True)
+            extra = (f"Gibbs draws integral, totals = eq total "
+                     f"{eq_total(outs[None])}, mean vs NumReads Spearman "
+                     f"{rho!r} (CPU run {rho_cpu!r})")
+        phase("golden", f"{name} ({' '.join(flags)}): quant.sf within rtol "
+              f"5e-3 / atol 0.5 of the port's CPU run (max |diff| "
+              f"{diff:.4f}); {extra}; clocks {clocks}; {sec:.2f} s; "
+              f"banded_dp launches {launches}")
+
+
+def changed_eff_share(plain: str, corrected: str) -> float:
+    """Share of the transcripts with >= 10 reads in the plain run whose
+    EffectiveLength the bias-corrected run moved by more than 0.01."""
+    import numpy as np
+    sf = []
+    for d in (plain, corrected):
+        with open(os.path.join(d, "quant.sf")) as fh:
+            sf.append(_parse_sf(fh.readlines()))
+    expressed = [n for n, row in sf[0].items() if row[2] >= 10]
+    moved = [abs(sf[0][n][0] - sf[1][n][0]) > 0.01 for n in expressed]
+    return float(np.mean(moved))
 
 
 def scale_phase(tmp: str) -> tuple:
@@ -519,19 +717,27 @@ def scale_phase(tmp: str) -> tuple:
     r1, r2 = (os.path.join(syn, f"reads_{i}.fastq") for i in (1, 2))
     truth = read_truth(r1)
     n_batches = math.ceil(SCALE_PAIRS / BATCH)
+    pairs = ["-1", r1, "-2", r2]
+    # the draws leave quant.sf as the paired run writes it, so those
+    # modes keep the paired gate
     modes = [
-        ("paired", ["-1", r1, "-2", r2], JAX_SPEARMAN_5K,
-         {MAIN_BW: n_batches}),
+        ("paired", pairs, JAX_SPEARMAN_5K, {MAIN_BW: n_batches}),
         ("single-end", ["-r", r1], JAX_SPEARMAN_5K_SINGLE,
          {MAIN_BW: n_batches}),
-        ("recoverOrphans", ["-1", r1, "-2", r2, "--recoverOrphans"],
+        ("recoverOrphans", [*pairs, "--recoverOrphans"],
          JAX_SPEARMAN_5K_RESCUE, {MAIN_BW: n_batches, RESCUE_BW: n_batches}),
+        ("bias", [*pairs, "--seqBias", "--gcBias"], JAX_SPEARMAN_5K_BIAS,
+         {MAIN_BW: n_batches}),
+        ("bootstrap", [*pairs, "--numBootstraps", str(SCALE_BOOTSTRAPS)],
+         JAX_SPEARMAN_5K, {MAIN_BW: n_batches}),
+        ("gibbs", [*pairs, "--numGibbsSamples", str(SCALE_GIBBS),
+                   "--dumpEq"], JAX_SPEARMAN_5K, {MAIN_BW: n_batches}),
     ]
     runs = {}
     for mode, flags, jax_rho, want_launches in modes:
         out = os.path.join(syn, f"quant_{mode}")
-        launches, sec = run_quant(["-i", idx, "-l", "A", *flags,
-                                   "-o", out])
+        launches, sec, clocks = run_quant(["-i", idx, "-l", "A", *flags,
+                                           "-o", out])
         meta = json.load(open(os.path.join(out, "aux_info",
                                            "meta_info.json")))
         rho = spearman(os.path.join(out, "quant.sf"), truth)
@@ -546,6 +752,21 @@ def scale_phase(tmp: str) -> tuple:
                 (rescued, JAX_RESCUED_5K)
             extra = (f"; num_orphans_rescued {rescued} (JAX package on the "
                      f"CPU: {JAX_RESCUED_5K})")
+        elif mode == "bias":
+            share = changed_eff_share(os.path.join(syn, "quant_paired"), out)
+            assert share >= 0.5, share
+            extra = (f"; EffectiveLength moved on {share!r} of the "
+                     f"transcripts with >= 10 reads; seconds: collection "
+                     f"{clocks['bias_collect_seconds']!r}, expected pass "
+                     f"{clocks['bias_expected_seconds']!r}, efflen pass "
+                     f"{clocks['bias_efflen_seconds']!r}, second EM "
+                     f"{clocks['em2_seconds']!r}")
+        elif mode in ("bootstrap", "gibbs"):
+            n = SCALE_BOOTSTRAPS if mode == "bootstrap" else SCALE_GIBBS
+            d_rho, dev = check_draws(out, n, gibbs=mode == "gibbs")
+            extra = (f"; {n} draws, largest relative deviation of a draw's "
+                     f"total {dev!r}, draws' mean vs NumReads Spearman "
+                     f"{d_rho!r}; sampling {clocks['sampling_seconds']!r} s")
         phase("scale", f"{mode}: quant {sec!r} s = {SCALE_PAIRS / sec!r} "
               f"{unit}/s; mapped {meta['percent_mapped']!r}%; banded_dp "
               f"launches {launches} for {n_batches} batches; NumReads "
@@ -555,14 +776,37 @@ def scale_phase(tmp: str) -> tuple:
     return runs["paired"], runs["recoverOrphans"], syn
 
 
+def device_profile(fn) -> tuple:
+    """fn() once under torch.profiler, between synchronizes. Returns
+    (wall seconds, CUDA kernel events by device time, descending, all
+    events)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    avg = prof.key_averages()
+    kernels = sorted((e for e in avg if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    return wall, kernels, avg
+
+
 def profile_phase(syn: str, n_batches: int = 6) -> None:
     """Where the time of the scale set's quant goes: the host's split
     between mapping and EM (quant.quantify's own clocks), and, over a
     few batches under torch.profiler, device time by kernel and by
-    PyTorch op, launches per batch and the device's idle share."""
+    PyTorch op, launches per batch and the device's idle share. Then the
+    same for the stages after the EM: quantify's bias clocks with
+    --seqBias --gcBias, and the bias passes, the bootstraps and the
+    Gibbs draws once each under the profiler."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from salmon_tpu_torch import quant
     from salmon_tpu_torch.index.builder import load_index
     from salmon_tpu_torch.io.fastq import iter_paired_chunks
@@ -599,18 +843,13 @@ def profile_phase(syn: str, n_batches: int = 6) -> None:
         ("codes_r", c.right.codes), ("lengths_r", c.right.lengths))}
         for _, c in zip(range(n_batches + 1), chunks)]
     pipeline.map_paired_batch(batches[0], dev, cfg, fld_in, cp, co)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def map_batches():
         for b in batches[1:]:
             out = pipeline.map_paired_batch(b, dev, cfg, fld_in, cp, co)
             out["eq_txp"].cpu()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    avg = prof.key_averages()
-    kernels = sorted((e for e in avg if e.device_type == DeviceType.CUDA),
-                     key=lambda e: -e.self_device_time_total)
+
+    wall, kernels, avg = device_profile(map_batches)
     ops = sorted((e for e in avg if e.device_type == DeviceType.CPU
                   and e.key.startswith("aten::")),
                  key=lambda e: -e.self_device_time_total)
@@ -634,6 +873,56 @@ def profile_phase(syn: str, n_batches: int = 6) -> None:
         phase("profile", f"op {e.key}: "
               f"{e.self_device_time_total / 1e3 / n_batches!r} ms/batch "
               f"on the device, {e.count / n_batches!r} calls/batch")
+    profile_post_em(index, res, r1, r2, dev_t)
+
+
+def profile_post_em(index, res, r1: str, r2: str, dev_t) -> None:
+    """The stages after the EM on the scale set: quantify's clocks with
+    --seqBias --gcBias, then the bias passes (fed the plain run's
+    alphas), --numBootstraps and --numGibbsSamples once each under
+    torch.profiler. `res` is the plain paired run's QuantResult."""
+    import numpy as np
+    from salmon_tpu_torch import quant
+    from salmon_tpu_torch.constants import SalmonDefaults
+    from salmon_tpu_torch.inference import sampling
+    from salmon_tpu_torch.models.efflen import effective_lengths
+
+    opts = SalmonDefaults()
+    opts.seq_bias_correct = opts.gc_bias_correct = True
+    res_b = quant.quantify(index, "A", [r1], [r2], opts=opts,
+                           progress=False, device=dev_t)
+    c = res_b.em_info
+    phase("profile", f"quantify --seqBias --gcBias: mapping loop "
+          f"{c['map_seconds']!r} s, of it the bias collection "
+          f"{c['bias_collect_seconds']!r} s; expected pass "
+          f"{c['bias_expected_seconds']!r} s, efflen pass "
+          f"{c['bias_efflen_seconds']!r} s, second EM {c['em2_seconds']!r} "
+          f"s; EM in all {c['em_seconds']!r} s")
+    n = index.num_valid_targets
+    pmf = res_b.fld.pmf()
+    eff0 = effective_lengths(np.asarray(index.lengths[:n]), pmf)
+    stages = {
+        "bias passes (expected + efflen)":
+            lambda: res_b.bias.corrected_effective_lengths(res.counts, eff0,
+                                                           pmf),
+        f"--numBootstraps {SCALE_BOOTSTRAPS}":
+            lambda: sampling.bootstrap_samples(
+                res.eq_classes, n, res.eff_lens, SCALE_BOOTSTRAPS,
+                use_vbem=True, vb_prior=opts.vb_prior,
+                per_transcript_prior=True, device=dev_t),
+        f"--numGibbsSamples {SCALE_GIBBS}":
+            lambda: sampling.gibbs_samples(
+                res.eq_classes, n, res.eff_lens, res.counts, SCALE_GIBBS,
+                thinning=opts.thinning_factor, prior=1.0, device=dev_t),
+    }
+    for name, fn in stages.items():
+        wall, kernels, _ = device_profile(fn)
+        busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
+        top = "; ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3!r} "
+                        f"ms x{e.count}" for e in kernels[:4])
+        phase("profile", f"{name}: wall {wall!r} s, device busy {busy_s!r} "
+              f"s, idle share {1 - busy_s / wall!r}, "
+              f"{sum(e.count for e in kernels)} kernel launches; top: {top}")
 
 
 def main() -> int:
@@ -646,6 +935,7 @@ def main() -> int:
         idx = golden_phase(tmp)
         golden_single_phase(idx, tmp)
         golden_rescue_phase(idx, tmp)
+        golden_bias_sampling_phase(idx, tmp)
         paired, rescue, syn = scale_phase(tmp)
         records[MAIN_BW]["launches"] = paired[MAIN_BW]
         records[RESCUE_BW]["launches"] = rescue[RESCUE_BW]

@@ -4,7 +4,8 @@ Counterpart of salmon_tpu/cli.py (reference src/cli/Salmon.cpp:161-327
 and src/cli/ProgramOptionsGenerator.cpp). The flag surface is the JAX
 package's, so a command line switches by replacing the module name.
 The port runs `index` and mapping-mode `quant` (paired-end -1/-2 or
-single-end -r reads) on a CUDA device; every flag whose behaviour it does not have yet raises
+single-end -r reads, with bias correction and Gibbs or bootstrap draws)
+on a CUDA device; every flag whose behaviour it does not have yet raises
 NotImplementedError naming its ROADMAP item. There is no online
 version check.
 """
@@ -482,7 +483,8 @@ def cmd_quant(args, device=None) -> int:
     write_outputs(result, index, args.output, opts=opts,
                   cmd_args=cmd_args,
                   dump_eq=args.dumpEq or args.dumpEqWeights,
-                  dump_eq_weights=args.dumpEqWeights)
+                  dump_eq_weights=args.dumpEqWeights, seed=args.seed,
+                  device=device)
     logger.info("quantification written to %s", args.output)
     return 0
 

@@ -1,0 +1,311 @@
+"""Posterior sampling: Gibbs chains and bootstrap replicates.
+
+Counterpart of salmon_tpu/inference/sampling.py. Reference:
+src/inference/CollapsedGibbsSampler.cpp (Turro-style non-collapsed
+sampler, sampleRoundNonCollapsedMultithreaded_ :93-180, sample
+:318-520) and CollapsedEMOptimizer.cpp doBootstrap (:398-530) /
+gatherBootstraps (:555-689).
+
+Equivalence classes are padded to a dense (C, S) member matrix (S = max
+class size). A multinomial redistribution of each class's count over
+its members is drawn for all classes at once by a conditional-binomial
+loop over the S member slots. Gibbs chains and bootstrap replicates are
+a leading batch dimension of every tensor, in place of jax.vmap.
+
+One formulation at every size: the JAX package switches to sort-routed
+variants (gibbs_samples_routed, bootstrap_samples_routed, over
+inference/fastem.py) at 65,536 eq entries because gathers are dear on
+the TPU; this port keeps the dense functions, as inference/em.py keeps
+one EM. Below that size the bootstraps equal the JAX package's (same
+host resampling, same per-replicate stopping rule); above it the routed
+JAX variant resamples in region order and stops all replicates
+together, so the two agree in distribution only. Gibbs draws come from
+a torch.Generator seeded with `seed`, not from jax.random: the two
+packages agree in distribution, not in streams.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from salmon_tpu_torch.constants import DEFAULTS
+from salmon_tpu_torch.inference.em import (DIGAMMA_MIN, MIN_EQ_WEIGHT,
+                                           prior_alphas)
+from salmon_tpu_torch.inference.eqclasses import PackedEqClasses
+
+GIBBS_BETA = 0.1  # reference: beta in sampleRoundNonCollapsedMultithreaded_
+
+# per-class count cap for the device multinomial: the conditional-
+# binomial loop carries its running remainder in float32, which is exact
+# for integers <= 2^24. Deeper classes are split into equal-distribution
+# chunks (Multinomial(n1+n2, p) = Multinomial(n1, p) + Multinomial(n2, p)).
+MULTINOMIAL_COUNT_CAP = 1 << 23
+# iterations between the host's "all replicates converged" checks
+BOOT_CHECK_EVERY = 10
+
+
+def split_deep_classes(eq: PackedEqClasses,
+                       cap: int = MULTINOMIAL_COUNT_CAP) -> PackedEqClasses:
+    """Split classes with count > cap into chunks of <= cap fragments.
+
+    The chunked multinomial reassignment has exactly the original
+    distribution; only the float32 precision bound moves out of reach."""
+    deep = np.flatnonzero(eq.counts > cap)
+    if deep.size == 0:
+        return eq
+    label_chunks, weight_chunks = [], []
+    counts, sizes = [], []
+    for j in range(eq.num_classes):
+        lo, hi = int(eq.offsets[j]), int(eq.offsets[j + 1])
+        n = float(eq.counts[j])
+        reps = max(1, int(np.ceil(n / cap)))
+        for r in range(reps):
+            label_chunks.append(eq.labels[lo:hi])
+            weight_chunks.append(eq.weights[lo:hi])
+            counts.append(min(float(cap), n - r * cap))
+            sizes.append(hi - lo)
+    labels = np.concatenate(label_chunks).astype(np.int32)
+    weights = np.concatenate(weight_chunks)
+    sizes = np.asarray(sizes, np.int32)
+    offsets = np.zeros(sizes.shape[0] + 1, np.int64)
+    offsets[1:] = np.cumsum(sizes)
+    return PackedEqClasses(labels=labels, weights=weights,
+                           offsets=offsets,
+                           counts=np.asarray(counts, np.float64),
+                           class_sizes=sizes)
+
+
+def _nchains(num_samples: int) -> int:
+    """Chain count keyed off the sample budget (reference sample
+    :425-437)."""
+    if num_samples >= 200:
+        return 8
+    if num_samples >= 100:
+        return 4
+    if num_samples >= 50:
+        return 2
+    return 1
+
+
+def dense_classes(eq: PackedEqClasses, num_txps: int, device="cuda"):
+    """Pad CSR classes to dense (C, S) tensors on `device`.
+
+    Returns ({labels (C, S) int64, aux (C, S) float32 class-normalized
+    aux weights, mask (C, S) bool, counts (C,) float32}, S).
+    """
+    C = eq.num_classes
+    sizes = np.asarray(eq.class_sizes, np.int64)
+    S = max(1, int(sizes.max())) if C else 1
+    rows = np.repeat(np.arange(C), sizes)
+    cols = np.arange(sizes.sum()) - np.repeat(np.asarray(eq.offsets[:-1]),
+                                              sizes)
+    labels = np.zeros((C, S), dtype=np.int64)
+    aux = np.zeros((C, S), dtype=np.float32)
+    mask = np.zeros((C, S), dtype=bool)
+    labels[rows, cols] = eq.labels
+    aux[rows, cols] = eq.weights
+    mask[rows, cols] = True
+
+    def put(a):
+        return torch.from_numpy(a).to(device)
+
+    return {"labels": put(labels), "aux": put(aux), "mask": put(mask),
+            "counts": put(eq.counts.astype(np.float32))}, S
+
+
+def multinomial_rows(gen: torch.Generator, n, probs, mask):
+    """Draw Multinomial(n_j, probs_j) for every row j at once.
+
+    Conditional-binomial method: slot i gets Binomial(remaining_j,
+    p_i / tail_p_j). probs need not be normalized. n: (..., C) float
+    counts; probs/mask: (..., C, S) (leading dimensions broadcast).
+    Returns (..., C, S) float32. The running remainder is float32: a row
+    with n > 2^24 loses integer precision (split_deep_classes keeps
+    Gibbs rows below it).
+    """
+    p = torch.where(mask, probs, 0.0).to(torch.float32)
+    S = p.shape[-1]
+    tail = torch.flip(torch.cumsum(torch.flip(p, [-1]), dim=-1), [-1])
+    remaining = n.to(torch.float32).expand(p.shape[:-1]).contiguous()
+    mask = mask.expand(p.shape)
+    out = torch.zeros_like(p)
+    for i in range(S):
+        pi, ti = p[..., i], tail[..., i]
+        if i == S - 1:
+            draw = remaining
+        else:
+            frac = torch.where(ti > MIN_EQ_WEIGHT, pi / ti.clamp(min=1e-30),
+                               1.0).clamp(0.0, 1.0)
+            draw = torch.binomial(remaining, frac.contiguous(),
+                                  generator=gen)
+            draw = torch.where(ti - pi <= MIN_EQ_WEIGHT, remaining, draw)
+        draw = torch.where(mask[..., i], draw, 0.0)
+        out[..., i] = draw
+        remaining = remaining - draw
+    return out
+
+
+def _gibbs_round(gen, txp_count, dcls, prior, eff_lens, num_txps: int,
+                 no_gamma_draw: bool):
+    """One internal Gibbs round of every chain: mu draw + multinomial
+    reassignment. txp_count: (K, T) int32 (draws are integral; int32
+    keeps per-transcript totals exact past the float32 2^24 bound)."""
+    ci = txp_count.to(torch.float32) + prior
+    if no_gamma_draw:
+        mu = ci / eff_lens.clamp(min=1.0)
+    else:
+        # Gamma(ci, scale=1/(beta + effLen))
+        g = torch._standard_gamma(ci.clamp(min=1e-6), generator=gen)
+        mu = g / (GIBBS_BETA + eff_lens)
+    labels, mask = dcls["labels"], dcls["mask"]
+    probs = 1000.0 * mu[:, labels] * dcls["aux"]
+    # degenerate-denominator fallbacks (reference :103-130): 1/effLen,
+    # then uniform
+    denom = torch.where(mask, probs, 0.0).sum(dim=-1, keepdim=True)
+    el_fallback = 1.0 / eff_lens[labels].clamp(min=1.0)
+    probs = torch.where(denom > MIN_EQ_WEIGHT, probs, el_fallback)
+    denom2 = torch.where(mask, probs, 0.0).sum(dim=-1, keepdim=True)
+    probs = torch.where(denom2 > MIN_EQ_WEIGHT, probs, 1.0)
+
+    assign = multinomial_rows(gen, dcls["counts"], probs, mask)
+    K = txp_count.shape[0]
+    flat = torch.where(mask, assign, 0.0).to(torch.int32).reshape(K, -1)
+    return torch.zeros((K, num_txps), dtype=torch.int32,
+                       device=flat.device).index_add_(
+        1, labels.reshape(-1), flat)
+
+
+def gibbs_samples(eq: PackedEqClasses, num_txps: int, eff_lens: np.ndarray,
+                  init_counts: np.ndarray, num_samples: int,
+                  thinning: int = DEFAULTS.thinning_factor,
+                  prior: np.ndarray | float = 1e-3,
+                  no_gamma_draw: bool = False,
+                  seed: int = 271828, device="cuda") -> np.ndarray:
+    """Generate `num_samples` posterior count draws on `device`.
+
+    Chains restart from the initial EM estimate as the reference does
+    (nchains keyed off numSamples, sample :425-437) and run side by side.
+    Returns (num_samples, num_txps) float64 integer counts (exact at any
+    depth: deep classes are chunked and totals accumulate in int32).
+    """
+    eq = split_deep_classes(eq)
+    dcls, _ = dense_classes(eq, num_txps, device)
+    eff = torch.as_tensor(np.maximum(eff_lens, 1.0), dtype=torch.float32,
+                          device=device)
+    pri = torch.as_tensor(np.broadcast_to(np.asarray(prior, np.float64),
+                                          (num_txps,)).copy(),
+                          dtype=torch.float32, device=device)
+    nchains = _nchains(num_samples)
+    per_chain = -(-num_samples // nchains)
+    # the carry becomes integral after the first reassignment round;
+    # rounding the (fractional) EM seed only perturbs the first mu draw
+    tc = torch.as_tensor(np.rint(np.asarray(init_counts)),
+                         dtype=torch.int32, device=device).expand(
+        nchains, num_txps)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    samples = []
+    for _ in range(per_chain):
+        for _ in range(thinning):
+            tc = _gibbs_round(gen, tc, dcls, pri, eff, num_txps,
+                              no_gamma_draw)
+        samples.append(tc)
+    out = torch.stack(samples, dim=1).reshape(-1, num_txps)[:num_samples]
+    return out.cpu().numpy().astype(np.float64)
+
+
+def bootstrap_samples(eq: PackedEqClasses, num_txps: int,
+                      eff_lens: np.ndarray, num_boot: int,
+                      use_vbem: bool, vb_prior: float,
+                      per_transcript_prior: bool,
+                      active_mask: np.ndarray | None = None,
+                      reproject: bool = False,
+                      tol: float = DEFAULTS.relative_diff_tolerance,
+                      max_iter: int = DEFAULTS.max_em_iterations,
+                      seed: int = 271828, device="cuda") -> np.ndarray:
+    """Bootstrap replicates: multinomial resample of class counts on the
+    host, then an independent EM/VBEM per replicate, all replicates side
+    by side on `device`.
+
+    Each replicate stops on its own, as under the JAX package's
+    vmap(while_loop): after at least 50 iterations, at the first whose
+    largest relative change is <= tol; a stopped replicate keeps its
+    values while the others run on. Returns (num_boot, num_txps) float64
+    counts.
+    """
+    dcls, _ = dense_classes(eq, num_txps, device)
+    labels, mask = dcls["labels"], dcls["mask"]
+    eff = torch.as_tensor(np.maximum(eff_lens, 1.0), dtype=torch.float32,
+                          device=device)
+    total = float(eq.counts.sum())
+    C = eq.num_classes
+    pri = torch.as_tensor(prior_alphas(num_txps, np.asarray(eff_lens),
+                                       vb_prior, per_transcript_prior),
+                          dtype=torch.float32, device=device)
+    if active_mask is None:
+        active = np.zeros(num_txps, dtype=bool)
+        active[eq.labels] = True
+    else:
+        active = active_mask
+    uniform = float(1.0 / max(1, active.sum()))
+    alpha0 = torch.as_tensor(np.where(active, uniform * total, 0.0),
+                             dtype=torch.float32, device=device)
+    active_t = torch.as_tensor(active, device=device)
+
+    # dense-form combined weights: aux / effLen, class-normalized
+    el = eff[labels].clamp(min=1.0)
+    cw = torch.where(mask, dcls["aux"] / el, 0.0)
+    cw_sum = cw.sum(dim=1, keepdim=True)
+    cw = torch.where(cw_sum > 0, cw / cw_sum.clamp(min=1e-30), 0.0)
+    is_single = mask & (mask.sum(dim=1, keepdim=True) == 1)
+
+    def dense_update(alpha, counts):
+        """alpha (K, T), counts (K, C) -> the next (K, T)."""
+        base = alpha
+        if use_vbem:
+            ap = alpha + pri
+            log_norm = torch.digamma(ap.sum(dim=1, keepdim=True))
+            base = torch.where(
+                ap > DIGAMMA_MIN,
+                torch.exp(torch.digamma(ap.clamp(min=DIGAMMA_MIN))
+                          - log_norm), 0.0)
+            base = torch.where(active_t, base, 0.0)
+        gamma = torch.where(mask, base[:, labels] * cw, 0.0)
+        denom = gamma.sum(dim=2, keepdim=True)
+        contrib = torch.where(denom > MIN_EQ_WEIGHT,
+                              counts[:, :, None] * gamma
+                              / denom.clamp(min=MIN_EQ_WEIGHT), 0.0)
+        contrib = torch.where(is_single, counts[:, :, None], contrib)
+        contrib = torch.where(mask, contrib, 0.0)
+        return torch.zeros_like(alpha).index_add_(
+            1, labels.reshape(-1), contrib.reshape(alpha.shape[0], -1))
+
+    min_iter = 50
+    cutoff = DEFAULTS.alpha_check_cutoff
+
+    # multinomial resample over classes on the HOST (reference csamp over
+    # sampleWeights = class counts), the JAX package's very draw: exact
+    # integer counts
+    rng_h = np.random.default_rng(seed ^ 0x5A17)
+    base_counts = np.asarray(eq.counts, np.float64)
+    pvec = base_counts / max(base_counts.sum(), 1e-300)
+    counts = torch.from_numpy(rng_h.multinomial(
+        max(1, int(round(total))), pvec, size=num_boot).astype(
+            np.float32)).to(device)
+
+    alpha = alpha0.expand(num_boot, num_txps).contiguous()
+    running = torch.ones(num_boot, dtype=torch.bool, device=device)
+    for it in range(1, max(max_iter, min_iter) + 1):
+        alpha_p = dense_update(alpha, counts)
+        rel = torch.where(alpha_p > cutoff, (alpha - alpha_p).abs()
+                          / alpha_p.clamp(min=1e-30), 0.0)
+        alpha = torch.where(running[:, None], alpha_p, alpha)
+        if it >= min_iter:
+            running = running & (rel.amax(dim=1) > tol)
+            if it % BOOT_CHECK_EVERY == 0 and not bool(running.any()):
+                break
+    if reproject:
+        alpha = dense_update(alpha, dcls["counts"].expand(num_boot, C))
+    alpha = torch.where(alpha < DEFAULTS.min_alpha, 0.0, alpha)
+    return alpha.cpu().numpy().astype(np.float64)

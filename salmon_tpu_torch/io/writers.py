@@ -8,6 +8,8 @@ Artifacts and their reference sources:
   aux_info/fld.gz / flenDist.txt             MappingPipelineStages.cpp:167-173
   aux_info/eq_classes.txt.gz                 writeEquivCounts :65-130
   aux_info/ambig_info.tsv                    :602-608
+  aux_info/bootstrap/  writeBootstrap        :766-820
+  aux_info/{obs,exp}*_{seq,gc,pos}.gz bias model dumps  :329-487
   quant.sf columns: Name  Length(Complete)  EffectiveLength  TPM  NumReads
   TPM = ((c_i/N)/effLen_i) / sum_j((c_j/N)/effLen_j) * 1e6
 """
@@ -226,6 +228,82 @@ def write_ambig_info(out_dir: str, aux_dir: str, num_txps: int, eq) -> str:
         for i in range(num_txps):
             fh.write(f"{uniq[i]}\t{ambig[i]}\n")
     return path
+
+
+def write_bootstraps(out_dir: str, aux_dir: str, names: Sequence[str],
+                     samples: np.ndarray) -> str:
+    """bootstrap/bootstraps.gz (raw little-endian float64, one row of
+    num_txps doubles per sample) + names.tsv.gz (reference writeBootstrap,
+    GZipWriter.cpp:766-820; TextBootstrapWriter layout)."""
+    d = os.path.join(out_dir, aux_dir, "bootstrap")
+    os.makedirs(d, exist_ok=True)
+    with gzip.open(os.path.join(d, "names.tsv.gz"), "wt") as fh:
+        fh.write("\t".join(names) + "\n")
+    path = os.path.join(d, "bootstraps.gz")
+    with gzip.open(path, "wb") as fh:
+        fh.write(np.ascontiguousarray(samples,
+                                      dtype=np.float64).tobytes())
+    return path
+
+
+def read_bootstraps(out_dir: str, aux_dir: str = "aux_info"):
+    """Read back (names, (S, T) array) from a bootstrap directory."""
+    d = os.path.join(out_dir, aux_dir, "bootstrap")
+    with gzip.open(os.path.join(d, "names.tsv.gz"), "rt") as fh:
+        names = fh.read().strip("\n").split("\t")
+    with gzip.open(os.path.join(d, "bootstraps.gz"), "rb") as fh:
+        raw = np.frombuffer(fh.read(), dtype=np.float64)
+    return names, raw.reshape(-1, len(names))
+
+
+def _write_matrix_gz(path: str, mat: np.ndarray) -> None:
+    """Binary dump: int64 rows, int64 cols, float64 row-major data."""
+    m = np.asarray(mat, dtype=np.float64)
+    with gzip.open(path, "wb") as fh:
+        fh.write(np.array(m.shape, dtype=np.int64).tobytes())
+        fh.write(np.ascontiguousarray(m).tobytes())
+
+
+def read_matrix_gz(path: str) -> np.ndarray:
+    with gzip.open(path, "rb") as fh:
+        raw = fh.read()
+    r, c = np.frombuffer(raw[:16], dtype=np.int64)
+    return np.frombuffer(raw[16:], dtype=np.float64).reshape(r, c)
+
+
+def write_bias_models(out_dir: str, aux_dir: str, bias_state,
+                      opts) -> None:
+    """Bias model dumps (reference GZipWriter.cpp:329-487: obs5_seq.gz,
+    exp5_seq.gz, obs_gc.gz, exp_gc.gz, obs5_pos.gz, ...). The expected
+    tables exist once the correction has run its first pass."""
+    d = os.path.join(out_dir, aux_dir)
+    os.makedirs(d, exist_ok=True)
+    obs = bias_state.obs
+
+    def dump(name, mat):
+        _write_matrix_gz(os.path.join(d, name), mat)
+
+    if opts.seq_bias_correct:
+        dump("obs5_seq.gz", obs.obs5)
+        dump("obs3_seq.gz", obs.obs3)
+        if bias_state.exp5_counts is not None:
+            dump("exp5_seq.gz", bias_state.exp5_counts)
+            dump("exp3_seq.gz", bias_state.exp3_counts)
+    if opts.gc_bias_correct:
+        # at the configured model resolution (numGCBins x
+        # conditionalGCBins), like the reference's GCFragModel counts
+        dump("obs_gc.gz", obs.gc_obs if bias_state.gc_obs_model is None
+             else bias_state.gc_obs_model)
+        if bias_state.gc_exp is not None:
+            dump("exp_gc.gz", bias_state.gc_exp
+                 if bias_state.gc_exp_model is None
+                 else bias_state.gc_exp_model)
+    if opts.pos_bias_correct:
+        dump("obs5_pos.gz", obs.pos5)
+        dump("obs3_pos.gz", obs.pos3)
+        if bias_state.pos5_exp is not None:
+            dump("exp5_pos.gz", bias_state.pos5_exp)
+            dump("exp3_pos.gz", bias_state.pos3_exp)
 
 
 def write_empty_outputs(out_dir: str, aux_dir: str, names: Sequence[str],

@@ -4,15 +4,20 @@ reads), one device.
 Counterpart of salmon_tpu/quant.py (reference flow: salmonQuantify ->
 processReads workers -> eq classes -> CollapsedEMOptimizer::optimize ->
 GZipWriter outputs): stream fixed-shape chunks -> map each batch on the
-device -> host eq-class / FLD / counter accumulation -> effective
-lengths -> EM/VBEM on the device -> writers.
+device (and, with a bias flag on paired reads, collect its observed
+bias histograms there) -> host eq-class / FLD / counter accumulation ->
+effective lengths -> EM/VBEM on the device -> with a bias flag, the
+bias-corrected effective lengths and a second EM -> writers, with
+Gibbs or bootstrap draws on the device when asked.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import json
 import logging
+import os
 import time
 from typing import Optional, Sequence
 
@@ -22,6 +27,7 @@ import torch
 from salmon_tpu_torch.constants import DEFAULTS, SalmonDefaults
 from salmon_tpu_torch.index.builder import TranscriptomeIndex, load_index
 from salmon_tpu_torch.inference import em as em_mod
+from salmon_tpu_torch.inference import sampling
 from salmon_tpu_torch.inference.clusters import normalize_alphas
 from salmon_tpu_torch.inference.eqclasses import EquivalenceClassAccumulator
 from salmon_tpu_torch.io import writers
@@ -30,6 +36,9 @@ from salmon_tpu_torch.mapping.pipeline import (MapperConfig,
                                                device_index_tensors,
                                                map_paired_batch,
                                                map_single_batch)
+from salmon_tpu_torch.models.bias import (bias_device_tensors,
+                                          collect_bias_observations)
+from salmon_tpu_torch.models.bias_correct import BiasState
 from salmon_tpu_torch.models.efflen import effective_lengths
 from salmon_tpu_torch.models.fld import FragmentLengthDistribution
 from salmon_tpu_torch.utils import libformat
@@ -56,6 +65,8 @@ class QuantResult:
     num_batches: int = 0
     num_orphans_rescued: int = 0
     paired: bool = True
+    bias: Optional[BiasState] = None
+    aux_target_ids: Optional[list] = None
 
 
 class InsufficientAssignedFragments(RuntimeError):
@@ -127,16 +138,38 @@ def _detect_library_format(fmt_hist: np.ndarray, paired: bool) -> str:
 
 def _check_ported(opts: SalmonDefaults) -> None:
     """Options whose behaviour the port does not have yet."""
-    if opts.seq_bias_correct or opts.gc_bias_correct \
-            or opts.pos_bias_correct or opts.aux_target_file:
-        raise NotImplementedError(
-            "bias correction (--seqBias/--gcBias/--posBias/"
-            "--auxTargetFile) is ROADMAP queue 1 #13")
-    if opts.num_gibbs_samples or opts.num_bootstraps:
-        raise NotImplementedError(
-            "Gibbs sampling and bootstraps are ROADMAP queue 1 #12")
     if opts.index_shards > 1:
         raise NotImplementedError("--indexShards is ROADMAP queue 1 #15")
+
+
+def _bias_on(opts: SalmonDefaults) -> bool:
+    return bool(opts.seq_bias_correct or opts.gc_bias_correct
+                or opts.pos_bias_correct)
+
+
+def _mark_auxiliary_targets(index, opts):
+    """--auxTargetFile (reference salmon::utils::markAuxiliaryTargets,
+    SalmonUtils.cpp:1133-1194): transcripts named in the file are marked
+    to skip bias correction. Returns (bool mask over valid targets, their
+    ids for aux_target_ids.json), or (None, None) without a file."""
+    path = opts.aux_target_file or ""
+    if not path:
+        return None, None
+    if not os.path.exists(path):
+        logger.warning("The auxiliary target file %s does not exist. "
+                       "No targets will be treated as auxiliary.", path)
+        return None, None
+    with open(path) as fh:
+        names = set(fh.read().split())
+    logger.info("Parsed %d auxiliary targets from %s", len(names), path)
+    n = index.num_valid_targets
+    mask = np.array([nm in names for nm in index.names[:n]], dtype=bool)
+    found = int(mask.sum())
+    if found != len(names):
+        logger.warning("While %d auxiliary target names were found in "
+                       "%s, only %d matched index transcripts.",
+                       len(names), path, found)
+    return mask, np.nonzero(mask)[0].tolist()
 
 
 def _to_np(t: torch.Tensor) -> np.ndarray:
@@ -171,6 +204,17 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
               "num_dovetail_fragments": 0, "num_frags_filtered_vm": 0,
               "num_alns_below_threshold": 0, "seed_tail_over": 0}
     fmt_hist_total = np.zeros(6, dtype=np.int64)
+
+    # bias models: observed statistics are collected per batch on the
+    # device, paired input only (single-end runs keep no bias state, as
+    # in the JAX package)
+    aux_skip_bias, aux_target_ids = _mark_auxiliary_targets(index, opts)
+    bias_state = bdev = None
+    collect_seconds = 0.0
+    if paired and _bias_on(opts):
+        bias_state = BiasState(index, opts, device)
+        bias_state.skip_bias = aux_skip_bias
+        bdev = bias_device_tensors(index, device)
 
     auto_detect = lib_format.strip().upper() == "A"
     resolved_format = None if auto_detect else lib_format.strip().upper()
@@ -217,21 +261,33 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
         if not paired:
             batch = {"codes": put(chunk.codes),
                      "lengths": put(chunk.lengths)}
-            return map_single_batch(batch, dev, cfg, fld_in, *compat)
+            return batch, map_single_batch(batch, dev, cfg, fld_in, *compat)
         batch = {"codes_l": put(chunk.left.codes),
                  "lengths_l": put(chunk.left.lengths),
                  "codes_r": put(chunk.right.codes),
                  "lengths_r": put(chunk.right.lengths)}
-        return map_paired_batch(batch, dev, cfg, fld_in, *compat)
+        return batch, map_paired_batch(batch, dev, cfg, fld_in, *compat)
 
     n_batches = 0
     last_progress = time.time()
 
-    def consume(out):
-        nonlocal n_batches, last_progress
+    def consume(batch, out):
+        nonlocal n_batches, last_progress, collect_seconds
         acc.add_batch(_to_np(out["eq_txp"]), _to_np(out["eq_weight"]),
                       _to_np(out["eq_bins"]) if cfg.range_bins > 0
                       else None)
+        if bias_state is not None:
+            # the batch's mapping has finished (its eq tensors are on the
+            # host), so this clock reads the collection alone
+            t_col = time.perf_counter()
+            bs = out["best_pos"]
+            bias_state.obs.add_batch(collect_bias_observations(
+                bdev, out["best_txp"], bs, bs + out["best_flen"] - 1,
+                out["best_fw"], batch["lengths_l"], batch["lengths_r"],
+                out["best_is_paired"]
+                & (out["best_txp"] < index.num_valid_targets),
+                torch.ones_like(bs, dtype=torch.float32)))
+            collect_seconds += time.perf_counter() - t_col
         fld.add_observations(_to_np(out["fld_hist"]).astype(np.float64))
         online_mass[:] += (np.exp(fmass.next_log_mass())
                            * _to_np(out["txp_mass"]).astype(np.float64))
@@ -264,7 +320,7 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
         chunks = iter_single_chunks(reads1, opts.reads_per_batch,
                                     opts.max_read_len)
     for chunk in chunks:
-        out = submit(chunk)
+        batch, out = submit(chunk)
         if resolved_format is None:
             # detection batches run synchronously (reference
             # LibraryTypeDetector: 50k samples, neutral compat until then)
@@ -276,11 +332,11 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
                             resolved_format)
                 compat = compat_tensors(
                     libformat.parse_library_format(resolved_format))
-        pending.append(out)
+        pending.append((batch, out))
         if len(pending) > depth:
-            consume(pending.popleft())
+            consume(*pending.popleft())
     while pending:
-        consume(pending.popleft())
+        consume(*pending.popleft())
     if auto_detect and resolved_format is None:
         resolved_format = _detect_library_format(detect_hist, paired)
         logger.info("auto-detected library format (short input): %s",
@@ -316,7 +372,10 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
         per_transcript_prior=opts.per_transcript_prior,
         rel_diff_tolerance=opts.relative_diff_tolerance,
         max_iterations=opts.max_em_iterations,
-        min_iterations=opts.min_em_iterations)
+        # reference: minIter 100 when bias-correcting, else 50
+        # (CollapsedEMOptimizer.cpp:741-742)
+        min_iterations=(opts.min_required_iterations if _bias_on(opts)
+                        else opts.min_em_iterations))
     # normalizeAlphas (reference SalmonUtils.cpp:462-529)
     if eq.num_classes and online_mass[:n_valid].sum() > 0:
         online_mass = normalize_alphas(eq, n_valid, online_mass[:n_valid])
@@ -325,20 +384,42 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
         if om_sum > 0:
             online_mass = online_mass * (totals["num_mapped"] / om_sum)
 
-    t_em = time.time()
-    if opts.skip_quant:
-        res = {"alphas": np.zeros(n_valid), "iterations": 0,
-               "max_rel_diff": 0.0, "converged": False, "skipped": True}
-    else:
-        res = em_mod.optimize(
-            eq, n_valid, eff, online_mass=online_mass[:n_valid],
+    def optimize(eff_lens):
+        return em_mod.optimize(
+            eq, n_valid, eff_lens, online_mass=online_mass[:n_valid],
             total_mapped=float(totals["num_mapped"]), config=emc,
             init_uniform=opts.init_uniform,
             num_required_frags=opts.num_required_frags,
             alt_init=opts.alternative_init_mode or opts.meta_mode,
             device=device)
+
+    t_em = time.time()
+    clocks = {}
+    if opts.skip_quant:
+        res = {"alphas": np.zeros(n_valid), "iterations": 0,
+               "max_rel_diff": 0.0, "converged": False, "skipped": True}
+    else:
+        res = optimize(eff)
+    if bias_state is not None and not opts.skip_quant:
+        # bias-aware effective-length recompute + re-optimize (reference:
+        # the mid-loop needsBiasLengthRecompute step,
+        # CollapsedEMOptimizer.cpp:900-928)
+        logger.info("recomputing effective lengths with bias models")
+        eff2 = bias_state.corrected_effective_lengths(res["alphas"], eff,
+                                                      fld_pmf)
+        clocks = {"bias_collect_seconds": collect_seconds,
+                  **{f"bias_{k}_seconds": v
+                     for k, v in bias_state.seconds.items()}}
+        if not np.allclose(eff2, eff):
+            eff = eff2
+            t_em2 = time.time()
+            res = optimize(eff)
+            clocks["em2_seconds"] = time.time() - t_em2
+        logger.info("bias correction clocks (s): %s", clocks,
+                    extra={"clocks": clocks})
     res["map_seconds"] = map_seconds
     res["em_seconds"] = time.time() - t_em
+    res.update(clocks)
 
     counts = res["alphas"]
     names = (libformat.format_names_paired() if paired
@@ -358,16 +439,52 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
             "num_decoy_fragments", "num_dovetail_fragments",
             "num_frags_filtered_vm", "num_alns_below_threshold")},
         num_batches=n_batches,
-        num_orphans_rescued=totals["num_orphans_rescued"], paired=paired)
+        num_orphans_rescued=totals["num_orphans_rescued"], paired=paired,
+        bias=bias_state, aux_target_ids=aux_target_ids)
+
+
+def _posterior_samples(result: QuantResult, opts: SalmonDefaults,
+                       seed: int, device):
+    """Gibbs or bootstrap draws on `device` (reference:
+    stageFinalizeMappingOutputs :63-98). Returns (samples, samp_type) or
+    (None, 'none')."""
+    n = len(result.names)
+    use_vb = opts.use_vb_opt and not opts.use_em
+    if opts.num_gibbs_samples > 0:
+        # Gibbs prior floors (reference CollapsedGibbsSampler::sample
+        # :356-368)
+        if use_vb:
+            prior = max(opts.vb_prior, 1.0) if opts.per_transcript_prior \
+                else max(opts.vb_prior, 1e-3)
+        else:
+            prior = 1e-3
+        if not opts.per_transcript_prior:
+            prior = prior * np.maximum(result.eff_lens, 1.0)
+        samples = sampling.gibbs_samples(
+            result.eq_classes, n, result.eff_lens, result.counts,
+            opts.num_gibbs_samples, thinning=opts.thinning_factor,
+            prior=prior, no_gamma_draw=opts.no_gamma_draw, seed=seed,
+            device=device)
+        return samples, "gibbs"
+    if opts.num_bootstraps > 0:
+        samples = sampling.bootstrap_samples(
+            result.eq_classes, n, result.eff_lens, opts.num_bootstraps,
+            use_vbem=use_vb, vb_prior=opts.vb_prior,
+            per_transcript_prior=opts.per_transcript_prior,
+            reproject=opts.bootstrap_reproject, seed=seed, device=device)
+        return samples, "bootstrap"
+    return None, "none"
 
 
 def write_outputs(result: QuantResult, index: TranscriptomeIndex,
                   out_dir: str, opts: SalmonDefaults = DEFAULTS,
                   cmd_args: Optional[dict] = None,
                   dump_eq: bool = False,
-                  dump_eq_weights: bool = True) -> None:
+                  dump_eq_weights: bool = True, seed: int = 271828,
+                  device="cuda") -> None:
     """Write the output directory (reference stageFinalizeMappingOutputs,
-    MappingPipelineStages.cpp:37-203)."""
+    MappingPipelineStages.cpp:37-203); Gibbs or bootstrap draws, when
+    asked, run on `device`."""
     n_valid = index.num_valid_targets
     if not opts.skip_quant:
         writers.write_quant_sf(out_dir, result.names,
@@ -375,6 +492,11 @@ def write_outputs(result: QuantResult, index: TranscriptomeIndex,
                                result.eff_lens, result.counts,
                                sig_digits=opts.sig_digits)
     writers.write_cmd_info(out_dir, cmd_args or {})
+    if result.aux_target_ids is not None:
+        d = os.path.join(out_dir, opts.aux_dir)
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "aux_target_ids.json"), "w") as fh:
+            json.dump({"aux_target_ids": result.aux_target_ids}, fh)
     # numCompat: observed formats compatible with the expected one
     # (reference ReadLibrary::numCompat via salmon::utils::compatibleHit)
     fmt = libformat.parse_library_format(result.lib_format)
@@ -390,19 +512,36 @@ def write_outputs(result: QuantResult, index: TranscriptomeIndex,
         out_dir, result.lib_format, result.fmt_counts, num_compat,
         result.num_processed, result.num_mapped)
     aux = opts.aux_dir
+    samples, samp_type = None, "none"
+    if (result.eq_classes is not None and result.eq_classes.num_classes
+            and not opts.skip_quant):
+        t0 = time.perf_counter()
+        samples, samp_type = _posterior_samples(result, opts, seed, device)
+        if samples is not None:
+            clocks = {"sampling_seconds": time.perf_counter() - t0}
+            logger.info("posterior sampling (%s, %d draws): %.3f s",
+                        samp_type, samples.shape[0],
+                        clocks["sampling_seconds"], extra={"clocks": clocks})
+            writers.write_bootstraps(out_dir, aux, result.names, samples)
     pm = (100.0 * result.num_mapped / result.num_processed
           if result.num_processed else 0.0)
     writers.write_meta_info(out_dir, aux, {
         "opt_type": "vb" if (opts.use_vb_opt and not opts.use_em) else "em",
-        "samp_type": "none",
-        "num_bootstraps": 0,
+        "samp_type": samp_type,
+        "num_bootstraps": (opts.num_gibbs_samples if samp_type == "gibbs"
+                           else opts.num_bootstraps),
         "num_libraries": 1,
         "library_types": [result.lib_format],
         "frag_dist_length": opts.max_frag_length + 1,
-        "seq_bias_correct": False,
-        "gc_bias_correct": False,
-        "pos_bias_correct": False,
-        "pos_bias_mode": "off",
+        "seq_bias_correct": opts.seq_bias_correct,
+        "gc_bias_correct": opts.gc_bias_correct,
+        "pos_bias_correct": opts.pos_bias_correct,
+        # which positional estimator ran: "reference-parity" reproduces
+        # the reference algorithm; "corrected" (--posBiasCorrected) is
+        # the fw-marginal estimator with knots at the bin centres
+        "pos_bias_mode": (
+            "corrected" if opts.pos_bias_corrected
+            else "reference-parity") if opts.pos_bias_correct else "off",
         "num_bias_bins": 4096,
         "mapping_type": "mapping",
         "keep_duplicates": index.info.get("keep_duplicates", True),
@@ -444,6 +583,8 @@ def write_outputs(result: QuantResult, index: TranscriptomeIndex,
     if result.fld is not None:
         writers.write_fld(out_dir, aux, result.fld.pmf())
     writers.write_vestigial_bias_vectors(out_dir, aux)
+    if result.bias is not None:
+        writers.write_bias_models(out_dir, aux, result.bias, opts)
     if result.eq_classes is not None:
         writers.write_ambig_info(out_dir, aux, n_valid, result.eq_classes)
         if dump_eq:

@@ -6,10 +6,12 @@
 
 Makes the set as chip_smoke.py does (scripts/make_synthetic_txome.py),
 builds an index with `python -m salmon_tpu index -k 31`, and runs
-`quant -l A` in each mapping mode of chip_smoke.py's scale phase:
-paired, single-end (-r reads_1) and paired with --recoverOrphans. For
-each it prints the Spearman of NumReads against the truth in the read
-names (computed as chip_smoke.py computes it), the mapping rate and
+`quant -l A` in each mode of chip_smoke.py's scale phase that the JAX
+package pins: paired, single-end (-r reads_1), paired with
+--recoverOrphans, paired with --seqBias --gcBias (bias) and paired with
+--numBootstraps 30 (bootstrap); --modes picks some of them. For each it
+prints the Spearman of NumReads against the truth in the read names
+(computed as chip_smoke.py computes it), the mapping rate and
 num_orphans_rescued. chip_smoke.py pins these Spearman values and gates
 the port at each minus 0.01. --port also runs the PyTorch port on the
 CPU (device="cpu") over the same index, for comparison.
@@ -37,7 +39,9 @@ def modes(syn: str) -> dict:
     r1, r2 = (os.path.join(syn, f"reads_{i}.fastq") for i in (1, 2))
     return {"paired": ["-1", r1, "-2", r2],
             "single_end": ["-r", r1],
-            "recover_orphans": ["-1", r1, "-2", r2, "--recoverOrphans"]}
+            "recover_orphans": ["-1", r1, "-2", r2, "--recoverOrphans"],
+            "bias": ["-1", r1, "-2", r2, "--seqBias", "--gcBias"],
+            "bootstrap": ["-1", r1, "-2", r2, "--numBootstraps", "30"]}
 
 
 def main() -> int:
