@@ -22,18 +22,23 @@ Phases, one line each; any failure raises and exits non-zero:
                the card against the port's CPU run (observed bias dumps
                equal, expected dumps and bootstraps within stated
                tolerances, Gibbs draws integral and conserving the eq
-               classes' total)
+               classes' total); then alignment mode (`quant -a`) on the
+               sample's truth BAM, plain and with --seqBias --gcBias, and
+               eq-class mode (`quant -e`) on the golden run's --dumpEq
+               output, each on the card against the port's CPU run
   5. scale   — `index` + `quant -l A` of a 5,000-transcript /
                200,000-pair synthetic set (scripts/make_synthetic_txome.py)
-               in six modes: paired, single-end (-r reads_1), paired with
-               --recoverOrphans, with --seqBias --gcBias, with
-               --numBootstraps 30 and with --numGibbsSamples 32. For
-               each: fragments (reads) per second, mapping rate, DP
-               launches per batch and band, and Spearman of NumReads
-               against the truth in the read names, gated at the JAX
-               package's value minus 0.01; the bias mode's stage clocks
-               and moved effective lengths, the draws' checks and the
-               sampling clock
+               in eight modes: paired, single-end (-r reads_1), paired
+               with --recoverOrphans, with --seqBias --gcBias, with
+               --numBootstraps 30, with --numGibbsSamples 32, alignment
+               mode on a BAM of every pair and its paralog alignments
+               (write_alignment_bam) and eq-class mode on the Gibbs run's
+               --dumpEq output. For each: fragments (reads) per second,
+               mapping rate, DP launches per batch and band, and Spearman
+               of NumReads against the truth in the read names, gated at
+               the JAX package's value minus 0.01; the bias mode's stage
+               clocks and moved effective lengths, the draws' checks and
+               the sampling clock, alignment mode's BAM and stage clocks
 Every mode runs through the CLI with the launch counts set to 0 just
 before it and read just after. The kernels JSON line (one record per
 band the main paths run: 15, and 80 for the rescue) and the card's name
@@ -41,7 +46,8 @@ and power limit come before the last line, which is {"ok": true,
 "device": {...}}. Imports nothing of JAX or salmon_tpu. --profile adds
 a phase 6: where the time of the paired scale quant goes, by
 quantify's own clocks and a torch.profiler breakdown of a few batches,
-and the clocks and device busy time of the bias passes and the draws.
+the clocks and device busy time of the bias passes and the draws, and
+the device busy time of alignment mode's error model.
 """
 
 from __future__ import annotations
@@ -71,6 +77,11 @@ JAX_SPEARMAN_5K_SINGLE = 0.9922372116579615
 JAX_SPEARMAN_5K_RESCUE = 0.9992805249685751
 # paired with --seqBias --gcBias (tools/jax_reference_5k.py --modes bias)
 JAX_SPEARMAN_5K_BIAS = 0.9993151132706852
+# alignment mode (-a) on write_alignment_bam's BAM of the set, and
+# eq-class mode (-e) on the classes of a paired --dumpEq run
+# (tools/jax_reference_5k.py --modes alignment eqclass)
+JAX_SPEARMAN_5K_ALIGNMENT = 0.9991168928230324
+JAX_SPEARMAN_5K_EQCLASS = 0.9981131999535959
 # num_orphans_rescued of that --recoverOrphans run, and how far the port
 # may be from it (5 %): the rescue probes an orphan's first hit, and
 # where orphan hits tie on score the two packages may rank another one
@@ -351,6 +362,120 @@ def read_truth(reads_1: str) -> collections.Counter:
     return truth
 
 
+# alignment-mode BAM of the scale set: a paralog record pair is written
+# where each mate has at most this many mismatches (Bowtie2's default
+# end-to-end minimum score, -0.6 - 0.6 x 100 = -60.6 at a mismatch
+# penalty of 6, admits 10)
+ALN_MAX_MISMATCHES = 10
+# every this-many-th fragment's records carry =/X CIGARs instead of 100M
+# (2 %), so that paralog records with >= 8 mismatches need more than the
+# 16 ops the error model's grid holds and take its host path
+ALN_EQX_EVERY = 50
+
+
+def _fastq_codes(path: str):
+    """(names, (n, L) uint8 base codes) of a FASTQ of equal-length
+    reads."""
+    import numpy as np
+    with open(path) as fh:
+        lines = fh.read().split("\n")
+    names = [ln[1:] for ln in lines[0::4] if ln]
+    seqs = lines[1::4][:len(names)]
+    lut = np.full(256, 4, np.uint8)
+    lut[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4, dtype=np.uint8)
+    codes = lut[np.frombuffer("".join(seqs).encode(), np.uint8)]
+    return names, codes.reshape(len(names), -1)
+
+
+def write_alignment_bam(syn: str, path: str) -> dict:
+    """The scale set's pairs as a BAM from an aligner that reports every
+    multimapper (Bowtie2 -k, STAR with multimappers), over
+    scripts/make_synthetic_txome.py's transcriptome (seed 7):
+
+    - one record pair per fragment at its true transcript and position,
+      read from the read name (readnum:txp:start:fraglen);
+    - a secondary record pair for every other member of that transcript's
+      paralog family (same coordinates) that holds the whole fragment
+      with at most ALN_MAX_MISMATCHES mismatches a mate. A family is a
+      run of consecutive transcripts whose first 300 bases (every
+      transcript has at least 300) differ on under 10 % of positions:
+      the generator derives a family from one base sequence with ~2 %
+      divergence, and unrelated transcripts differ on ~75 %;
+    - CIGAR 100M, or =/X runs for every ALN_EQX_EVERY-th fragment;
+      AS = 2 x matches - 4 x mismatches, NM = mismatches.
+
+    Returns counts of what was written."""
+    import importlib.util
+    import numpy as np
+    from salmon_tpu_torch.alignment.bamio import write_bam
+
+    spec = importlib.util.spec_from_file_location(
+        "make_synthetic_txome",
+        os.path.join(REPO, "scripts", "make_synthetic_txome.py"))
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    names, seqs = gen.make_txome(SCALE_TXPS, seed=7)
+    lens = [s.shape[0] for s in seqs]
+    tid = {nm: i for i, nm in enumerate(names)}
+    family = np.zeros(len(seqs), np.int64)
+    for t in range(1, len(seqs)):
+        differ = np.mean(seqs[t][:300] != seqs[t - 1][:300])
+        family[t] = family[t - 1] + (differ >= 0.1)
+    members = collections.defaultdict(list)
+    for t, f in enumerate(family):
+        members[f].append(t)
+
+    rnames, c1 = _fastq_codes(os.path.join(syn, "reads_1.fastq"))
+    _, c2 = _fastq_codes(os.path.join(syn, "reads_2.fastq"))
+    # the right mate in reference orientation, as a BAM stores a
+    # reverse-strand record
+    c2 = np.where(c2 < 4, 3 - c2, 4)[:, ::-1]
+    rl = c1.shape[1]
+    stats = collections.Counter()
+
+    def cigar(mismatch):
+        if not mismatch.any():
+            return f"{rl}="
+        edges = np.flatnonzero(np.diff(mismatch.astype(np.int8))) + 1
+        bounds = np.concatenate([[0], edges, [rl]])
+        return "".join(f"{b - a}{'X' if mismatch[a] else '='}"
+                       for a, b in zip(bounds[:-1], bounds[1:]))
+
+    def records():
+        for i, name in enumerate(rnames):
+            _, txp, st, fl = name.split(":")
+            t, st, fl = tid[txp], int(st), int(fl)
+            p2 = st + fl - rl
+            s1 = "".join("ACGTN"[x] for x in c1[i])
+            s2 = "".join("ACGTN"[x] for x in c2[i])
+            eqx = i % ALN_EQX_EVERY == 0
+            for u in [t] + [u for u in members[family[t]] if u != t]:
+                if lens[u] < st + fl:
+                    continue
+                mm1 = c1[i] != seqs[u][st:st + rl]
+                mm2 = c2[i] != seqs[u][p2:p2 + rl]
+                if u != t and max(mm1.sum(), mm2.sum()) > ALN_MAX_MISMATCHES:
+                    continue
+                sec = 0x100 if u != t else 0
+                stats["secondary_pairs" if sec else "primary_pairs"] += 1
+                for flag, pos, mpos, tlen, seq, mm in (
+                        (0x1 | 0x40 | 0x20, st, p2, fl, s1, mm1),
+                        (0x1 | 0x80 | 0x10, p2, st, -fl, s2, mm2)):
+                    n_mm = int(mm.sum())
+                    stats["records"] += 1
+                    stats["eqx_records"] += eqx
+                    yield dict(name=name, refid=u, pos=pos, flag=flag | sec,
+                               cigar=cigar(mm) if eqx else f"{rl}M",
+                               seq=seq, mate_refid=u, mate_pos=mpos,
+                               tlen=tlen, tags={"AS": 2 * (rl - n_mm)
+                                                - 4 * n_mm, "NM": n_mm})
+
+    write_bam(path, names, lens, records())
+    stats["fragments"] = len(rnames)
+    stats["families"] = int(sum(len(m) > 1 for m in members.values()))
+    return dict(stats)
+
+
 def _parse_sf(lines):
     rows = {}
     for ln in lines[1:]:
@@ -421,7 +546,7 @@ def golden_phase(tmp: str) -> str:
     launches, _, _ = run_quant(["-i", idx, "-l", "IU",
                                 "-1", os.path.join(DATA, "reads_1.fastq"),
                                 "-2", os.path.join(DATA, "reads_2.fastq"),
-                                "-o", out])
+                                "--dumpEq", "-o", out])
     with gzip.open(os.path.join(DATA, "golden", "quant.sf.gz"), "rt") as fh:
         want = _parse_sf(fh.readlines())
     with open(os.path.join(out, "quant.sf")) as fh:
@@ -680,6 +805,83 @@ def golden_bias_sampling_phase(idx: str, tmp: str) -> None:
               f"banded_dp launches {launches}")
 
 
+def sample_truth_bam(path: str) -> int:
+    """The sample pairs at their true transcript and positions, from the
+    read names (readnum:txp:start:fragment end), as a paired BAM written
+    by the port's write_bam (tests/test_alignment_mode.py's truth BAM).
+    Returns the number of records."""
+    from salmon_tpu_torch.alignment.bamio import write_bam
+    from salmon_tpu_torch.io.fasta import load_transcripts
+
+    records, _ = load_transcripts(os.path.join(DATA, "transcripts.fasta"),
+                                  noclip_polya=True)
+    names = [r.name for r in records]
+    tid = {nm: i for i, nm in enumerate(names)}
+    with open(os.path.join(DATA, "reads_1.fastq")) as f1, \
+            open(os.path.join(DATA, "reads_2.fastq")) as f2:
+        l1, l2 = f1.read().split("\n"), f2.read().split("\n")
+    recs = []
+    for i in range(0, len(l1) - 3, 4):
+        name = l1[i][1:].split()[0]
+        _, txp, pos, fend = name.split(":")
+        rid, pos, fend = tid[txp], int(pos), int(fend)
+        s1, s2 = l1[i + 1].strip(), l2[i + 1].strip()
+        tlen, p2 = fend - pos + 1, fend - len(s2) + 1
+        recs.append(dict(name=name, refid=rid, pos=pos,
+                         flag=0x1 | 0x40 | 0x20, cigar=f"{len(s1)}M",
+                         seq=s1, mate_refid=rid, mate_pos=p2, tlen=tlen,
+                         tags={"AS": 2 * len(s1), "NM": 0}))
+        recs.append(dict(name=name, refid=rid, pos=p2,
+                         flag=0x1 | 0x80 | 0x10, cigar=f"{len(s2)}M",
+                         seq=s2, mate_refid=rid, mate_pos=pos, tlen=-tlen,
+                         tags={"AS": 2 * len(s2), "NM": 0}))
+    write_bam(path, names, [r.seq_codes.shape[0] for r in records], recs)
+    return len(recs)
+
+
+def golden_alignment_phase(tmp: str) -> None:
+    """Alignment mode on the sample truth BAM, plain and with --seqBias
+    --gcBias, and eq-class mode on the golden paired run's --dumpEq
+    output, each on the card against the port's CPU run of the same
+    command: quant.sf within rtol 5e-3 / atol 0.5, and for -a Spearman
+    against the truth >= 0.999 (tests/test_alignment_mode.py's gate).
+    Neither mode launches banded_dp."""
+    bam = os.path.join(tmp, "g_truth.bam")
+    n_rec = sample_truth_bam(bam)
+    truth = read_truth(os.path.join(DATA, "reads_1.fastq"))
+    fasta = os.path.join(DATA, "transcripts.fasta")
+    runs = [("-a", ["-t", fasta, "-l", "A", "-a", bam]),
+            ("-a --seqBias --gcBias", ["-t", fasta, "-l", "A", "-a", bam,
+                                       "--seqBias", "--gcBias"]),
+            ("-e", ["-e", os.path.join(tmp, "g_quant"), "-l", "A"])]
+    for name, argv in runs:
+        outs, metas = {}, {}
+        for device in (None, "cpu"):
+            outs[device] = os.path.join(
+                tmp, f"g_{name.replace(' ', '')}_{device or 'cuda'}")
+            launches, sec, clocks = run_quant([*argv, "-o", outs[device]],
+                                              device=device)
+            assert launches == {}, (name, launches)
+            metas[device] = json.load(open(os.path.join(
+                outs[device], "aux_info", "meta_info.json")))
+            if device is None:
+                card = (sec, clocks)
+        diff = sf_close(outs[None], outs["cpu"])
+        rho = spearman(os.path.join(outs[None], "quant.sf"), truth)
+        meta = metas[None]
+        if name.startswith("-a"):
+            assert rho >= 0.999, (name, rho)
+            assert meta["mapping_type"] == "alignment", meta
+            assert meta["num_processed"] == n_rec // 2, meta
+        else:
+            assert meta["mapping_type"] == "eqclass", meta
+        phase("golden", f"{name}: quant.sf within rtol 5e-3 / atol 0.5 of "
+              f"the port's CPU run (max |diff| {diff:.4f}); Spearman vs "
+              f"truth {rho!r}; num_em_iterations {meta['num_em_iterations']} "
+              f"(CPU run {metas['cpu']['num_em_iterations']}); "
+              f"{card[0]:.2f} s; clocks {card[1]}")
+
+
 def changed_eff_share(plain: str, corrected: str) -> float:
     """Share of the transcripts with >= 10 reads in the plain run whose
     EffectiveLength the bias-corrected run moved by more than 0.01."""
@@ -694,9 +896,9 @@ def changed_eff_share(plain: str, corrected: str) -> float:
 
 
 def scale_phase(tmp: str) -> tuple:
-    """The three modes of the 5k / 200k set. Returns (launches by band
-    of the paired run, launches by band of the --recoverOrphans run, the
-    set's directory)."""
+    """The modes of the 5k / 200k set. Returns (launches by band of the
+    paired run, launches by band of the --recoverOrphans run, the set's
+    directory)."""
     from salmon_tpu_torch import cli
 
     syn = os.path.join(tmp, "syn")
@@ -717,12 +919,13 @@ def scale_phase(tmp: str) -> tuple:
     r1, r2 = (os.path.join(syn, f"reads_{i}.fastq") for i in (1, 2))
     truth = read_truth(r1)
     n_batches = math.ceil(SCALE_PAIRS / BATCH)
-    pairs = ["-1", r1, "-2", r2]
+    pairs = ["-i", idx, "-1", r1, "-2", r2]
+    bam = os.path.join(syn, "aln.bam")
     # the draws leave quant.sf as the paired run writes it, so those
-    # modes keep the paired gate
+    # modes keep the paired gate; -a and -e launch no banded_dp
     modes = [
         ("paired", pairs, JAX_SPEARMAN_5K, {MAIN_BW: n_batches}),
-        ("single-end", ["-r", r1], JAX_SPEARMAN_5K_SINGLE,
+        ("single-end", ["-i", idx, "-r", r1], JAX_SPEARMAN_5K_SINGLE,
          {MAIN_BW: n_batches}),
         ("recoverOrphans", [*pairs, "--recoverOrphans"],
          JAX_SPEARMAN_5K_RESCUE, {MAIN_BW: n_batches, RESCUE_BW: n_batches}),
@@ -732,20 +935,32 @@ def scale_phase(tmp: str) -> tuple:
          JAX_SPEARMAN_5K, {MAIN_BW: n_batches}),
         ("gibbs", [*pairs, "--numGibbsSamples", str(SCALE_GIBBS),
                    "--dumpEq"], JAX_SPEARMAN_5K, {MAIN_BW: n_batches}),
+        ("alignment", ["-t", os.path.join(syn, "txome.fasta"), "-a", bam],
+         JAX_SPEARMAN_5K_ALIGNMENT, {}),
+        ("eqclass", ["-e", os.path.join(syn, "quant_gibbs")],
+         JAX_SPEARMAN_5K_EQCLASS, {}),
     ]
     runs = {}
-    for mode, flags, jax_rho, want_launches in modes:
+    for mode, argv, jax_rho, want_launches in modes:
+        extra = ""
+        if mode == "alignment":
+            t0 = time.perf_counter()
+            stats = write_alignment_bam(syn, bam)
+            t_bam = time.perf_counter() - t0
         out = os.path.join(syn, f"quant_{mode}")
-        launches, sec, clocks = run_quant(["-i", idx, "-l", "A", *flags,
-                                           "-o", out])
+        launches, sec, clocks = run_quant(["-l", "A", *argv, "-o", out])
         meta = json.load(open(os.path.join(out, "aux_info",
                                            "meta_info.json")))
         rho = spearman(os.path.join(out, "quant.sf"), truth)
-        assert meta["num_processed"] == SCALE_PAIRS, meta["num_processed"]
+        if mode == "eqclass":
+            gibbs = json.load(open(os.path.join(
+                syn, "quant_gibbs", "aux_info", "meta_info.json")))
+            assert meta["num_processed"] == gibbs["num_mapped"], meta
+        else:
+            assert meta["num_processed"] == SCALE_PAIRS, meta["num_processed"]
         assert launches == want_launches, (mode, launches, want_launches)
         assert rho >= jax_rho - 0.01, (mode, rho, jax_rho)
         unit = "reads" if mode == "single-end" else "frags"
-        extra = ""
         if mode == "recoverOrphans":
             rescued = meta["num_orphans_rescued"]
             assert abs(rescued - JAX_RESCUED_5K) <= RESCUED_SLACK, \
@@ -767,8 +982,26 @@ def scale_phase(tmp: str) -> tuple:
             extra = (f"; {n} draws, largest relative deviation of a draw's "
                      f"total {dev!r}, draws' mean vs NumReads Spearman "
                      f"{d_rho!r}; sampling {clocks['sampling_seconds']!r} s")
-        phase("scale", f"{mode}: quant {sec!r} s = {SCALE_PAIRS / sec!r} "
-              f"{unit}/s; mapped {meta['percent_mapped']!r}%; banded_dp "
+        elif mode == "alignment":
+            assert clocks["host_path_records"] > 0, clocks
+            extra = (f"; BAM of {stats['records']} records "
+                     f"({stats['records'] / 2 / SCALE_PAIRS!r} alignments "
+                     f"per fragment, {stats['secondary_pairs']} secondary "
+                     f"pairs over {stats['families']} paralog families, "
+                     f"{stats['eqx_records']} records with =/X CIGARs) "
+                     f"built in {t_bam!r} s; bam_read_seconds "
+                     f"{clocks['bam_read_seconds']!r}, errmodel_seconds "
+                     f"{clocks['errmodel_seconds']!r}, host-path records "
+                     f"{clocks['host_path_records']}, em_seconds "
+                     f"{clocks['em_seconds']!r}; num_em_iterations "
+                     f"{meta['num_em_iterations']}")
+        elif mode == "eqclass":
+            extra = (f"; num_em_iterations {meta['num_em_iterations']} over "
+                     f"{meta['num_eq_classes']} classes")
+        # -e re-runs the EM alone: no fragment passes through it
+        rate = "" if mode == "eqclass" else f" = {SCALE_PAIRS / sec!r} {unit}/s"
+        phase("scale", f"{mode}: quant {sec!r} s{rate}; mapped "
+              f"{meta['percent_mapped']!r}%; banded_dp "
               f"launches {launches} for {n_batches} batches; NumReads "
               f"Spearman vs truth {rho!r} (JAX package on the CPU: "
               f"{jax_rho}){extra}")
@@ -874,6 +1107,7 @@ def profile_phase(syn: str, n_batches: int = 6) -> None:
               f"{e.self_device_time_total / 1e3 / n_batches!r} ms/batch "
               f"on the device, {e.count / n_batches!r} calls/batch")
     profile_post_em(index, res, r1, r2, dev_t)
+    profile_alignment(syn, dev_t)
 
 
 def profile_post_em(index, res, r1: str, r2: str, dev_t) -> None:
@@ -925,6 +1159,55 @@ def profile_post_em(index, res, r1: str, r2: str, dev_t) -> None:
               f"{sum(e.count for e in kernels)} kernel launches; top: {top}")
 
 
+def profile_alignment(syn: str, dev_t, n_batches: int = 4) -> None:
+    """Alignment mode's error model on the scale BAM: the first
+    n_batches reader batches once each through prepare, log_likelihood
+    and update (the -a driver's calls) under torch.profiler, with the
+    time of the reads beside it."""
+    import numpy as np
+    from salmon_tpu_torch.alignment import quant as aq
+    from salmon_tpu_torch.alignment.bamio import BamReader
+    from salmon_tpu_torch.alignment.errormodel_device import \
+        DeviceAlignmentErrorModel
+
+    names, tlens, records = aq._load_targets(os.path.join(syn,
+                                                          "txome.fasta"))
+    shim = aq._targets_index(names, tlens, records)
+    rdr = BamReader(os.path.join(syn, "aln.bam"))
+    ref_map = np.arange(len(names), dtype=np.int64)
+    t0 = time.perf_counter()
+    batches = [b for _, b in zip(range(n_batches), rdr.batches())]
+    t_read = time.perf_counter() - t0
+    rdr.close()
+    groups = []
+    for b in batches:
+        g = aq._group_fragments(b, True)
+        keep = np.nonzero(g[1])[0]
+        groups.append((b, g[8][keep], g[9][keep]))
+    model = DeviceAlignmentErrorModel(shim.seq_codes, shim.seq_offsets,
+                                      tlens, device=dev_t)
+    model.prepare(*groups[0], ref_map).update(np.ones(groups[0][1].size))
+
+    def run():
+        for b, i1, i2 in groups:
+            prep = model.prepare(b, i1, i2, ref_map)
+            prep.log_likelihood()
+            prep.update(np.full(i1.size, 0.5))
+        model.normalize()
+
+    wall, kernels, avg = device_profile(run)
+    busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    n_rec = sum(b.n for b in batches)
+    top = "; ".join(f"{e.key[:50]} {e.self_device_time_total / 1e3!r} ms "
+                    f"x{e.count}" for e in kernels[:6])
+    phase("profile", f"-a error model, {n_batches} batches of "
+          f"{n_rec // n_batches} records: read {t_read!r} s "
+          f"({t_read / n_rec * 1e6!r} us a record); prepare + likelihood + "
+          f"update wall {wall!r} s, device busy {busy_s!r} s, idle share "
+          f"{1 - busy_s / wall!r}, {sum(e.count for e in kernels)} kernel "
+          f"launches; top: {top}")
+
+
 def main() -> int:
     smi = device_phase()
     sys.path.insert(0, REPO)
@@ -936,6 +1219,7 @@ def main() -> int:
         golden_single_phase(idx, tmp)
         golden_rescue_phase(idx, tmp)
         golden_bias_sampling_phase(idx, tmp)
+        golden_alignment_phase(tmp)
         paired, rescue, syn = scale_phase(tmp)
         records[MAIN_BW]["launches"] = paired[MAIN_BW]
         records[RESCUE_BW]["launches"] = rescue[RESCUE_BW]

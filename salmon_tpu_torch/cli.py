@@ -3,11 +3,12 @@
 Counterpart of salmon_tpu/cli.py (reference src/cli/Salmon.cpp:161-327
 and src/cli/ProgramOptionsGenerator.cpp). The flag surface is the JAX
 package's, so a command line switches by replacing the module name.
-The port runs `index` and mapping-mode `quant` (paired-end -1/-2 or
-single-end -r reads, with bias correction and Gibbs or bootstrap draws)
-on a CUDA device; every flag whose behaviour it does not have yet raises
-NotImplementedError naming its ROADMAP item. There is no online
-version check.
+The port runs `index` and `quant` in its three modes (mapping mode on
+paired-end -1/-2 or single-end -r reads, alignment mode -a/-t and
+eq-class mode -e; bias correction, Gibbs or bootstrap draws and
+--geneMap) on a CUDA device; every flag whose behaviour it does not have
+yet raises NotImplementedError naming its ROADMAP item. There is no
+online version check.
 """
 
 from __future__ import annotations
@@ -408,28 +409,17 @@ def cmd_index(args) -> int:
     return 0
 
 
-# (flag given, ROADMAP item) for quant flags the port does not have yet
+# (flag given, ROADMAP item) for mapping-mode flags the port does not
+# have yet
 _UNPORTED = (
-    ("alignments", "alignment mode (-a) is ROADMAP queue 1 #14"),
-    ("eqclasses", "eq-class mode (-e) is ROADMAP queue 1 #14"),
     ("writeMappings", "--writeMappings is ROADMAP queue 1 #17"),
     ("writeUnmappedNames", "--writeUnmappedNames is ROADMAP queue 1 #17"),
     ("writeOrphanLinks", "--writeOrphanLinks is ROADMAP queue 1 #17"),
-    ("geneMap", "--geneMap is ROADMAP queue 1 #17"),
     ("profileDir", "--profileDir is ROADMAP queue 1 #17"),
 )
 
 
 def cmd_quant(args, device=None) -> int:
-    for flag, item in _UNPORTED:
-        if getattr(args, flag):
-            raise NotImplementedError(item)
-    if not args.index:
-        logger.error("mapping-based mode requires -i/--index")
-        return 1
-    if not (args.mates1 and args.mates2) and not args.unmatedReads:
-        logger.error("provide -1/-2 (paired) or -r (single-end) reads")
-        return 1
     if device is None:
         import torch
         if not torch.cuda.is_available():
@@ -441,6 +431,25 @@ def cmd_quant(args, device=None) -> int:
     _setup_logging(args.output)
     cmd_args = {k: v for k, v in vars(args).items()
                 if v is not None and k != "command"}
+
+    if args.eqclasses:
+        from salmon_tpu_torch.alignment.eqmode import quantify_eqclasses
+        return quantify_eqclasses(args, _opts_from_args(args), cmd_args,
+                                  device)
+    if args.alignments:
+        from salmon_tpu_torch.alignment.quant import quantify_alignments
+        return quantify_alignments(args, _opts_from_args(args), cmd_args,
+                                   device)
+
+    for flag, item in _UNPORTED:
+        if getattr(args, flag):
+            raise NotImplementedError(item)
+    if not args.index:
+        logger.error("mapping-based mode requires -i/--index")
+        return 1
+    if not (args.mates1 and args.mates2) and not args.unmatedReads:
+        logger.error("provide -1/-2 (paired) or -r (single-end) reads")
+        return 1
     # up-front input checks (ReadLibrary::checkValid role,
     # ReadLibrary.hpp:130-170): fail before loading the index
     import stat as _stat
@@ -485,6 +494,10 @@ def cmd_quant(args, device=None) -> int:
                   dump_eq=args.dumpEq or args.dumpEqWeights,
                   dump_eq_weights=args.dumpEqWeights, seed=args.seed,
                   device=device)
+    if args.geneMap and not opts.skip_quant:
+        from salmon_tpu_torch.utils.genemap import aggregate_quant_sf
+        aggregate_quant_sf(os.path.join(args.output, "quant.sf"),
+                           args.geneMap)
     logger.info("quantification written to %s", args.output)
     return 0
 

@@ -9,8 +9,11 @@ index_add_ for the denominators, and a per-transcript index_add_ for
 the new alphas — at every size. (The JAX package switches to a
 sort-routed layout at 65,536 entries because gathers are dear on the
 TPU; this port keeps one formulation.) float32 on the device; the
-convergence test runs on the host after every iteration, as the
-reference checks every iteration.
+convergence test runs on the host. Below ROUTED_MIN_ENTRIES it runs
+after every iteration, as the reference checks every iteration; from
+ROUTED_MIN_ENTRIES on it runs after each chunk of EM_CHUNK iterations,
+as the JAX package's routed engine does, so that both stop after the
+same number of iterations.
 """
 
 from __future__ import annotations
@@ -26,6 +29,12 @@ from salmon_tpu_torch.inference.eqclasses import PackedEqClasses
 
 MIN_EQ_WEIGHT = 1e-30     # minEQClassWeight analog
 DIGAMMA_MIN = 1e-10
+# From this many eq-class entries on, the JAX package runs its routed
+# engine, which tests convergence only after each chunk of EM_CHUNK
+# iterations (salmon_tpu/inference/fastem.py:285, :399-408); the port
+# keeps its formulation and takes the same stopping rule there.
+ROUTED_MIN_ENTRIES = 65_536
+EM_CHUNK = 100
 
 
 @dataclasses.dataclass
@@ -96,19 +105,33 @@ def run_em(labels: torch.Tensor, seg: torch.Tensor, counts: torch.Tensor,
         contrib = torch.where(singleton, count_e, contrib)
         return _seg_sum(contrib, labels, num_txps)
 
-    alpha = alpha0
-    it = 0
-    mrd = float("inf")
-    converged = False
-    while it < min_iter or (it < max_iter and not converged):
-        alpha_p = step(alpha)
+    def max_rel_diff(alpha, alpha_p):
         rel = torch.where(alpha_p > alpha_cutoff,
                           (alpha - alpha_p).abs()
                           / torch.clamp(alpha_p, min=1e-30), 0.0)
-        mrd = float(rel.max()) if rel.numel() else 0.0
-        converged = mrd <= tol
-        alpha = alpha_p
-        it += 1
+        return float(rel.max()) if rel.numel() else 0.0
+
+    alpha = alpha0
+    it = 0
+    mrd = float("inf")
+    if labels.shape[0] >= ROUTED_MIN_ENTRIES:
+        # chunked stopping rule: the relative difference of each chunk's
+        # last iteration, read after the chunk
+        while it < max_iter:
+            for _ in range(min(EM_CHUNK, max_iter - it)):
+                alpha_prev, alpha = alpha, step(alpha)
+                it += 1
+            mrd = max_rel_diff(alpha_prev, alpha)
+            if it >= min_iter and mrd <= tol:
+                break
+    else:
+        converged = False
+        while it < min_iter or (it < max_iter and not converged):
+            alpha_p = step(alpha)
+            mrd = max_rel_diff(alpha, alpha_p)
+            converged = mrd <= tol
+            alpha = alpha_p
+            it += 1
     return alpha, it, mrd, int(degenerate.sum()), available
 
 

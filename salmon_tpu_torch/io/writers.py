@@ -52,6 +52,23 @@ def write_quant_sf(out_dir: str, names: Sequence[str],
     return path
 
 
+def read_quant_sf(path: str) -> dict:
+    """Parse a quant.sf into a dict of numpy columns."""
+    names, lens, elens, tpms, reads = [], [], [], [], []
+    with open(path) as fh:
+        fh.readline()
+        for line in fh:
+            f = line.rstrip("\n").split("\t")
+            names.append(f[0])
+            lens.append(int(float(f[1])))
+            elens.append(float(f[2]))
+            tpms.append(float(f[3]))
+            reads.append(float(f[4]))
+    return {"Name": names, "Length": np.array(lens),
+            "EffectiveLength": np.array(elens), "TPM": np.array(tpms),
+            "NumReads": np.array(reads)}
+
+
 def write_lib_format_counts(out_dir: str, expected_format: str,
                             fmt_counts: dict, num_compatible: int,
                             num_processed: int, num_mapped: int) -> str:
@@ -323,3 +340,18 @@ def write_empty_outputs(out_dir: str, aux_dir: str, names: Sequence[str],
                                        "num_mapped": 0,
                                        "percent_mapped": 0.0})
 
+
+def write_gene_quant(out_dir: str, gene_names: Sequence[str],
+                     gene_lens: np.ndarray, gene_eff_lens: np.ndarray,
+                     gene_tpm: np.ndarray, gene_counts: np.ndarray,
+                     sig_digits: int = 3) -> str:
+    """quant.genes.sf (reference GZipWriter::writeAbundances at gene
+    level, via aggregateEstimatesToGeneLevel)."""
+    path = os.path.join(out_dir, "quant.genes.sf")
+    with open(path, "w") as fh:
+        fh.write("Name\tLength\tEffectiveLength\tTPM\tNumReads\n")
+        for i, nm in enumerate(gene_names):
+            fh.write(f"{nm}\t{gene_lens[i]:.{sig_digits}f}\t"
+                     f"{gene_eff_lens[i]:.{sig_digits}f}\t"
+                     f"{gene_tpm[i]:f}\t{gene_counts[i]:.{sig_digits}f}\n")
+    return path

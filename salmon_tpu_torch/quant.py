@@ -481,10 +481,11 @@ def write_outputs(result: QuantResult, index: TranscriptomeIndex,
                   cmd_args: Optional[dict] = None,
                   dump_eq: bool = False,
                   dump_eq_weights: bool = True, seed: int = 271828,
-                  device="cuda") -> None:
+                  device="cuda", mapping_type: str = "mapping") -> None:
     """Write the output directory (reference stageFinalizeMappingOutputs,
     MappingPipelineStages.cpp:37-203); Gibbs or bootstrap draws, when
-    asked, run on `device`."""
+    asked, run on `device`. mapping_type goes to meta_info.json
+    ("mapping", or "alignment" from the -a driver)."""
     n_valid = index.num_valid_targets
     if not opts.skip_quant:
         writers.write_quant_sf(out_dir, result.names,
@@ -543,7 +544,7 @@ def write_outputs(result: QuantResult, index: TranscriptomeIndex,
             "corrected" if opts.pos_bias_corrected
             else "reference-parity") if opts.pos_bias_correct else "off",
         "num_bias_bins": 4096,
-        "mapping_type": "mapping",
+        "mapping_type": mapping_type,
         "keep_duplicates": index.info.get("keep_duplicates", True),
         "num_valid_targets": n_valid,
         "num_decoy_targets": index.num_targets - n_valid,

@@ -113,6 +113,41 @@ def test_optimize_matches_routed_engine(vbem):
     _compare(want, got, check_iters=False)
 
 
+@pytest.mark.parametrize("vbem", [False, True], ids=["em", "vbem"])
+def test_stopping_rule_matches_routed_engine(vbem):
+    """At >= 65,536 entries, with the default iteration limits and
+    tolerance, the port tests convergence after each chunk of EM_CHUNK
+    iterations as the routed engine does: both stop after the same
+    number of iterations (a multiple of 100, or the maximum)."""
+    jeq, teq, eff, mass = random_eq(3, 3000, 20000, 6)
+    assert jeq.labels.shape[0] >= jem.ROUTED_MIN_ENTRIES
+    assert tem.ROUTED_MIN_ENTRIES == jem.ROUTED_MIN_ENTRIES
+    cfg = dict(use_vbem=vbem)
+    want = jem.optimize(jeq, 3000, eff, online_mass=mass,
+                        config=jem.EMConfig(**cfg))
+    got = tem.optimize(teq, 3000, eff, online_mass=mass,
+                       config=tem.EMConfig(**cfg), device="cpu")
+    assert got["iterations"] == want["iterations"]
+    assert (got["iterations"] % tem.EM_CHUNK == 0
+            or got["iterations"] == tem.EMConfig().max_iterations)
+    assert got["converged"] == want["converged"]
+    _compare(want, got, check_iters=False)
+
+
+@pytest.mark.parametrize("vbem", [False, True], ids=["em", "vbem"])
+def test_stopping_rule_below_threshold(vbem):
+    """Under 65,536 entries, with the default limits, the port still
+    tests every iteration, as the JAX package's classic engine does."""
+    jeq, teq, eff, mass = random_eq(5, 400, 3000, 6)
+    assert jeq.labels.shape[0] < jem.ROUTED_MIN_ENTRIES
+    cfg = dict(use_vbem=vbem)
+    want = jem.optimize(jeq, 400, eff, online_mass=mass,
+                        config=jem.EMConfig(**cfg))
+    got = tem.optimize(teq, 400, eff, online_mass=mass,
+                       config=tem.EMConfig(**cfg), device="cpu")
+    _compare(want, got, check_iters=True)
+
+
 def test_initial_and_prior_alphas_match():
     rng = np.random.default_rng(4)
     mass = rng.random(50) * 100

@@ -112,7 +112,8 @@ def test_cli_quant_on_jax_built_index(tmp_path):
 def test_port_runs_without_jax(tmp_path):
     """With jax unimportable, the port imports and runs index + quant,
     paired, single-end, with the rescue, with bias correction and
-    Gibbs draws, and with bootstraps."""
+    Gibbs draws, with bootstraps, in alignment mode (-a) and in eq-class
+    mode (-e)."""
     script = f"""
 import sys
 sys.modules["jax"] = None
@@ -120,6 +121,7 @@ sys.modules["salmon_tpu"] = None
 sys.path.insert(0, {REPO!r})
 from salmon_tpu_torch import cli
 idx, out = {str(tmp_path / 'idx')!r}, {str(tmp_path / 'quant')!r}
+FASTA = {os.path.join(DATA, 'transcripts.fasta')!r}
 assert cli.main(["index", "-t", {os.path.join(DATA, 'transcripts.fasta')!r},
                  "-i", idx, "-k", "31"]) == 0
 assert cli.main(["quant", "-i", idx, "-l", "A", *{READS!r}, "-o", out,
@@ -135,6 +137,19 @@ assert cli.main(["quant", "-i", idx, "-l", "IU", *{READS!r}, "--seqBias",
                 device="cpu") == 0
 assert cli.main(["quant", "-i", idx, "-l", "IU", *{READS!r},
                  "--numBootstraps", "2", "-o", out + "_boot", "-q"],
+                device="cpu") == 0
+from salmon_tpu_torch.alignment.bamio import write_bam
+from salmon_tpu_torch.io.fasta import load_transcripts
+recs, _ = load_transcripts(FASTA, noclip_polya=True)
+codes = recs[0].seq_codes
+bam = out + "_aln.bam"
+write_bam(bam, [r.name for r in recs], [len(r.seq_codes) for r in recs],
+          [dict(name=f"r{{i}}", refid=0, pos=i, flag=0, cigar="50M",
+                seq="".join("ACGTN"[c] for c in codes[i:i + 50]),
+                tags={{"AS": 100}}) for i in range(200)])
+assert cli.main(["quant", "-t", FASTA, "-l", "A", "-a", bam, "--dumpEq",
+                 "-o", out + "_aln", "-q"], device="cpu") == 0
+assert cli.main(["quant", "-e", out + "_aln", "-o", out + "_eq", "-q"],
                 device="cpu") == 0
 assert not any(m == "jax" or m.startswith(("jax.", "salmon_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
@@ -155,11 +170,16 @@ def test_no_jax_imports_in_the_port():
             dirs.remove("_build")     # build output, not the package
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    # nor does it load the JAX package's native library or read the JAX
+    # driver's device switches
+    native = re.compile(r"libsalmontpu|SALMON_TPU_ALIGN_DEVICE|"
+                        r"SALMON_TPU_HOST_ERRMODEL")
     bad = []
     for path in files:
         with open(path) as fh:
             bad += [f"{path}:{i}: {ln.strip()}"
-                    for i, ln in enumerate(fh, 1) if pattern.match(ln)]
+                    for i, ln in enumerate(fh, 1)
+                    if pattern.match(ln) or native.search(ln)]
     assert not bad, bad
 
 
@@ -169,6 +189,20 @@ def test_cli_quant_needs_cuda_by_default(port_index, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["quant", "-i", port_index, "-l", "IU", *READS,
                   "-o", str(tmp_path / "q"), "-q"])
+
+
+@pytest.mark.parametrize("argv", [
+    ["-a", "x.bam", "-t", os.path.join(DATA, "transcripts.fasta")],
+    ["-e", "eqdir"],
+], ids=["alignment-mode", "eq-mode"])
+def test_alignment_and_eq_modes_need_cuda_by_default(tmp_path, argv):
+    """-a and -e run on the CUDA device unless the caller asks for the
+    CPU; without one they raise before reading any input."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: quant would run on it")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["quant", *argv, "-l", "A", "-o", str(tmp_path / "q"),
+                  "-q"])
 
 
 # --auxTargetFile: one name of the index and one it lacks
@@ -385,10 +419,8 @@ def test_unported_options_raise(port_index, tmp_path, monkeypatch, flags,
 
 
 @pytest.mark.parametrize("argv", [
-    ["quant", "-a", "x.bam", "-t", "t.fa", "-l", "A", "-o", "q"],
-    ["quant", "-e", "eqdir", "-l", "A", "-o", "q"],
     ["quantmerge", "--quants", "a", "b", "-o", "m.tsv"],
-], ids=["alignment-mode", "eq-mode", "quantmerge"])
+], ids=["quantmerge"])
 def test_unported_commands_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(argv, device="cpu")
