@@ -25,15 +25,33 @@ Phases, one line each; any failure raises and exits non-zero:
                classes' total); then alignment mode (`quant -a`) on the
                sample's truth BAM, plain and with --seqBias --gcBias, and
                eq-class mode (`quant -e`) on the golden run's --dumpEq
-               output, each on the card against the port's CPU run
+               output, each on the card against the port's CPU run; the
+               sample pairs with the sparse seed flow
+               (SALMON_TPU_SPARSE_SEED=1) and with the row-pool gather
+               (SALMON_TPU_ROWPOOL=64), eq classes equal to the port's
+               CPU run's and the dense card run's, and with a row pool
+               that binds (SALMON_TPU_ROWPOOL=2), held to the port's CPU
+               run; the side outputs (--writeMappings,
+               --writeUnmappedNames, --writeOrphanLinks on pairs with
+               swapped mates and all-N pairs, and --profileDir)
+               byte-equal to the port's CPU run, the unmapped names
+               those of the all-N pairs, the trace naming
+               banded_dp_kernel;
+               and `quantmerge` (-c TPM, -c NumReads, --genes) of those
+               runs, held to their files and to the merge of the CPU
+               runs
   5. scale   — `index` + `quant -l A` of a 5,000-transcript /
                200,000-pair synthetic set (scripts/make_synthetic_txome.py)
-               in eight modes: paired, single-end (-r reads_1), paired
+               in ten modes: paired, single-end (-r reads_1), paired
                with --recoverOrphans, with --seqBias --gcBias, with
                --numBootstraps 30, with --numGibbsSamples 32, alignment
                mode on a BAM of every pair and its paralog alignments
-               (write_alignment_bam) and eq-class mode on the Gibbs run's
-               --dumpEq output. For each: fragments (reads) per second,
+               (write_alignment_bam), eq-class mode on the Gibbs run's
+               --dumpEq output, paired with the sparse seed flow and
+               paired with --writeMappings --writeUnmappedNames (SAM
+               records 2 per paired and 1 per orphan fragment, one
+               unmapped name per unmapped fragment, the writer's
+               seconds). For each: fragments (reads) per second,
                mapping rate, DP launches per batch and band, and Spearman
                of NumReads against the truth in the read names, gated at
                the JAX package's value minus 0.01; the bias mode's stage
@@ -46,8 +64,9 @@ and power limit come before the last line, which is {"ok": true,
 "device": {...}}. Imports nothing of JAX or salmon_tpu. --profile adds
 a phase 6: where the time of the paired scale quant goes, by
 quantify's own clocks and a torch.profiler breakdown of a few batches,
-the clocks and device busy time of the bias passes and the draws, and
-the device busy time of alignment mode's error model.
+dense and sparse seed flow in turns, the clocks and device busy time of
+the bias passes and the draws, and the device busy time of alignment
+mode's error model.
 """
 
 from __future__ import annotations
@@ -65,6 +84,9 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(REPO, "tests", "data")
+# the CLI's online version check stays off: the card's machine has no
+# network
+os.environ["SALMON_NO_VERSION_CHECK"] = "1"
 
 # Spearman of quant.sf NumReads against the simulated truth counts that
 # the JAX package reached on the same 5,000-transcript / 200,000-pair set
@@ -82,6 +104,13 @@ JAX_SPEARMAN_5K_BIAS = 0.9993151132706852
 # (tools/jax_reference_5k.py --modes alignment eqclass)
 JAX_SPEARMAN_5K_ALIGNMENT = 0.9991168928230324
 JAX_SPEARMAN_5K_EQCLASS = 0.9981131999535959
+# paired with the sparse seed flow, SALMON_TPU_SPARSE_SEED=1
+# (tools/jax_reference_5k.py --modes sparse): below the dense value, as
+# its default budget of 32 hits a read end drops paralogs' occurrences
+JAX_SPEARMAN_5K_SPARSE = 0.9974659839874211
+SPARSE_ENV = {"SALMON_TPU_SPARSE_SEED": "1"}
+ROWPOOL_ENV = {"SALMON_TPU_ROWPOOL": "64"}
+ROWPOOL_BINDING_ENV = {"SALMON_TPU_ROWPOOL": "2"}   # a budget that binds
 # num_orphans_rescued of that --recoverOrphans run, and how far the port
 # may be from it (5 %): the rescue probes an orphan's first hit, and
 # where orphan hits tie on score the two packages may rank another one
@@ -503,20 +532,25 @@ def spearman(quant_sf: str, truth) -> float:
 class StageClocks(logging.Handler):
     """Collects the stage clocks that the port logs with its records
     (extra={"clocks": {...}}: the bias collection and passes, the second
-    EM, posterior sampling)."""
+    EM, posterior sampling), and the text of its warnings."""
 
     def __init__(self):
         super().__init__()
         self.clocks = {}
+        self.warnings = []
 
     def emit(self, record):
         self.clocks.update(getattr(record, "clocks", {}))
+        if record.levelno >= logging.WARNING:
+            self.warnings.append(record.getMessage())
 
 
-def run_quant(argv: list, device=None) -> tuple[dict, float, dict]:
-    """One `quant` through the CLI with the banded_dp launch counts set
-    to 0 just before it. Returns (launches by band, seconds, the stage
-    clocks the port logged)."""
+def run_quant(argv: list, device=None, env=None) -> tuple[dict, float,
+                                                          dict]:
+    """One `quant` through the CLI, with the environment variables of
+    `env` set for it, and the banded_dp launch counts set to 0 just
+    before it. Returns (launches by band, seconds, the stage clocks the
+    port logged)."""
     import torch
     from salmon_tpu_torch import cli
     from salmon_tpu_torch.mapping.align import BANDED_DP
@@ -524,6 +558,8 @@ def run_quant(argv: list, device=None) -> tuple[dict, float, dict]:
     clocks = StageClocks()
     log = logging.getLogger("salmon_tpu_torch")
     log.addHandler(clocks)
+    saved = {k: os.environ.get(k) for k in env or {}}
+    os.environ.update(env or {})
     try:
         BANDED_DP.reset()
         t0 = time.perf_counter()
@@ -533,6 +569,11 @@ def run_quant(argv: list, device=None) -> tuple[dict, float, dict]:
         sec = time.perf_counter() - t0
     finally:
         log.removeHandler(clocks)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
     return dict(BANDED_DP.by_shape), sec, clocks.clocks
 
 
@@ -882,6 +923,207 @@ def golden_alignment_phase(tmp: str) -> None:
               f"{card[0]:.2f} s; clocks {card[1]}")
 
 
+def sample_gene_map(tmp: str) -> str:
+    """A gene map of the sample transcripts for `-g`: each consecutive
+    pair of tests/data/transcripts.fasta's transcripts is one gene."""
+    with open(os.path.join(DATA, "transcripts.fasta")) as fh:
+        names = [ln[1:].split()[0] for ln in fh if ln.startswith(">")]
+    path = os.path.join(tmp, "sample_genes.tsv")
+    with open(path, "w") as fh:
+        fh.writelines(f"{t}\tG{i // 2}\n" for i, t in enumerate(names))
+    return path
+
+
+N_ALL_N = 200   # fragments of swapped_mates whose two ends are all N
+
+
+def swapped_mates(tmp: str) -> list:
+    """The sample pairs with the right mates of every 8th fragment and
+    its fifth neighbour swapped, and both ends of every 50th fragment,
+    from the 4th, all N (tests/test_torch_side_outputs.py's reads): a
+    quarter of the fragments have no concordant pair and map as
+    orphans, and N_ALL_N map nowhere. Returns the -1/-2 arguments."""
+    args = []
+    for flag, mate in (("-1", "1"), ("-2", "2")):
+        with open(os.path.join(DATA, f"reads_{mate}.fastq")) as fh:
+            lines = fh.read().splitlines(keepends=True)
+        recs = [lines[i:i + 4] for i in range(0, len(lines), 4)]
+        if mate == "2":
+            for i in range(0, len(recs) - 5, 8):
+                recs[i][1], recs[i + 5][1] = recs[i + 5][1], recs[i][1]
+        for r in recs[3::50]:
+            r[1] = "N" * (len(r[1]) - 1) + "\n"
+        path = os.path.join(tmp, f"swapped_reads_{mate}.fastq")
+        with open(path, "w") as fh:
+            fh.write("".join("".join(r) for r in recs))
+        args += [flag, path]
+    return args
+
+
+def _bytes(path: str) -> bytes:
+    with open(path, "rb") as fh:
+        return fh.read()
+
+
+def eq_class_lines(out: str) -> list:
+    """The class lines of a --dumpEq run's eq_classes.txt.gz (labels and
+    counts, no weights), with its header and transcript names."""
+    with gzip.open(os.path.join(out, "aux_info", "eq_classes.txt.gz"),
+                   "rt") as fh:
+        n_txps, n_classes = int(fh.readline()), int(fh.readline())
+        return [fh.readline() for _ in range(n_txps + n_classes)]
+
+
+def golden_seed_modes_phase(idx: str, tmp: str, gene_map: str) -> dict:
+    """The sample pairs (-l IU, -g gene_map, --dumpEq) with the sparse
+    seed flow and with the row-pool gather, each on the card and in the
+    port's CPU run: equivalence classes (labels and counts) equal to the
+    CPU run's and to the dense card run's (g_quant), quant.sf within the
+    golden tolerance of both. (The EM adds float32 on the card with
+    atomics, so its last printed digits can differ from the CPU's, as in
+    the dense runs above.) Then the row pool at a budget of 2 windows a
+    read row, which binds: the card's run warns of the windows it left
+    without their first row, as the CPU run does, and its eq classes
+    and quant.sf are held to the CPU run's only. Returns {mode: {device:
+    output directory}} of the first two."""
+    reads = ["-1", os.path.join(DATA, "reads_1.fastq"),
+             "-2", os.path.join(DATA, "reads_2.fastq")]
+    dense = os.path.join(tmp, "g_quant")
+    log = logging.getLogger("salmon_tpu_torch")
+    runs = {}
+    for name, env in (("sparse", SPARSE_ENV), ("rowpool-64", ROWPOOL_ENV),
+                      ("rowpool-2", ROWPOOL_BINDING_ENV)):
+        outs, saturated = {}, {}
+        for device in (None, "cpu"):
+            outs[device] = os.path.join(tmp, f"g_{name}_{device or 'cuda'}")
+            watch = StageClocks()
+            log.addHandler(watch)
+            try:
+                launches, sec, _ = run_quant(
+                    ["-i", idx, "-l", "IU", *reads, "-g", gene_map,
+                     "--dumpEq", "-o", outs[device]], device=device, env=env)
+            finally:
+                log.removeHandler(watch)
+            saturated[device] = [w for w in watch.warnings
+                                 if "tail-gather budget saturated" in w]
+            if device is None:
+                card = (launches, sec)
+        launches, sec = card
+        assert launches.get(MAIN_BW, 0) > 0 and set(launches) == {MAIN_BW}, \
+            f"the golden {name} quant launched banded_dp {launches}"
+        binding = name == "rowpool-2"
+        assert saturated[None] == saturated["cpu"] and \
+            bool(saturated[None]) == binding, (name, saturated)
+        classes = eq_class_lines(outs[None])
+        others = [outs["cpu"]] if binding else [outs["cpu"], dense]
+        for other in others:
+            assert classes == eq_class_lines(other), \
+                f"{name}: eq classes differ from {other}"
+        diffs = ", ".join(f"{sf_close(outs[None], o):.4f}" for o in others)
+        phase("golden", f"{name} ({env}): {len(classes)} eq-class lines "
+              f"equal to the port's CPU run"
+              f"{'' if binding else ' and the dense card run'}; quant.sf "
+              f"within rtol 5e-3 / atol 0.5 (max |diff| {diffs}); "
+              f"{(saturated[None] or ['pool budget not reached'])[0]}; "
+              f"{sec:.2f} s; banded_dp launches {launches}")
+        if not binding:
+            runs[name] = outs
+    return runs
+
+
+def golden_side_outputs_phase(idx: str, tmp: str, gene_map: str) -> dict:
+    """One paired run (-l IU, -g gene_map) on swapped_mates with
+    --writeMappings FILE --writeUnmappedNames --writeOrphanLinks on the
+    card, also with --profileDir, and on the CPU: the SAM file,
+    unmapped_names.txt and orphan_links.txt byte-equal, the unmapped
+    names those of the N_ALL_N all-N fragments; the trace present,
+    non-empty and naming banded_dp_kernel. Returns {device:
+    output directory}."""
+    reads = swapped_mates(tmp)
+    outs, prof_dir = {}, os.path.join(tmp, "g_profile")
+    side = ["--writeUnmappedNames", "--writeOrphanLinks"]
+    for device in (None, "cpu"):
+        outs[device] = os.path.join(tmp, f"g_side_{device or 'cuda'}")
+        prof = ["--profileDir", prof_dir] if device is None else []
+        launches, sec, clocks = run_quant(
+            ["-i", idx, "-l", "IU", *reads, "-g", gene_map,
+             "--writeMappings", outs[device] + ".sam", *side, *prof, "-o",
+             outs[device]], device=device)
+        if device is None:
+            card = (launches, sec, clocks)
+    launches, sec, clocks = card
+    assert launches.get(MAIN_BW, 0) > 0 and set(launches) == {MAIN_BW}, \
+        f"the golden side-output quant launched banded_dp {launches}"
+    sizes = {}
+    for name, rel in (("SAM", ".sam"),
+                      ("unmapped_names.txt",
+                       "/aux_info/unmapped_names.txt"),
+                      ("orphan_links.txt", "/aux_info/orphan_links.txt")):
+        got, want = (_bytes(outs[d] + rel) for d in (None, "cpu"))
+        assert got == want, f"{name} on the card differs from the CPU run"
+        sizes[name] = got.count(b"\n")
+    assert sizes["orphan_links.txt"] > 1000 and sizes["SAM"] > 15000, sizes
+    # the all-N fragments, and only they, are unmapped
+    with open(reads[1]) as fh:
+        heads = fh.read().splitlines()[::4]
+    all_n = "".join(h[1:].split()[0] + " u\n" for h in heads[3::50])
+    assert sizes["unmapped_names.txt"] == N_ALL_N, sizes
+    assert _bytes(outs[None] + "/aux_info/unmapped_names.txt") \
+        == all_n.encode(), "unmapped names are not the all-N fragments"
+    traces = os.listdir(prof_dir)
+    assert len(traces) == 1, traces
+    trace = os.path.join(prof_dir, traces[0])
+    body = _bytes(trace)
+    assert body and b"banded_dp_kernel" in body, trace
+    phase("golden", f"side outputs on pairs with swapped mates: SAM, "
+          f"unmapped_names.txt, orphan_links.txt byte-equal to the port's "
+          f"CPU run (lines {sizes}); --profileDir trace {traces[0]} of "
+          f"{len(body)} bytes names banded_dp_kernel; clocks {clocks}; "
+          f"{sec:.2f} s (under the profiler); banded_dp launches {launches}")
+    return outs
+
+
+def golden_quantmerge_phase(tmp: str, card: list, cpu: list) -> None:
+    """quantmerge (-c TPM, -c NumReads, --genes) of the card runs'
+    outputs: each cell the `:g` text of its run's quant.sf (or
+    quant.genes.sf) value, and the matrix of the same merge of the
+    port's CPU runs alike in names and within the golden tolerance."""
+    import numpy as np
+    from salmon_tpu_torch import cli
+    from salmon_tpu_torch.io.writers import read_quant_sf
+
+    names = ["--names", *(f"s{i}" for i in range(len(card)))]
+    lines = {}
+    for name, flags, col, fname in (
+            ("TPM", ["-c", "TPM"], "TPM", "quant.sf"),
+            ("NumReads", ["-c", "NumReads"], "NumReads", "quant.sf"),
+            ("genes", ["--genes", "-c", "NumReads"], "NumReads",
+             "quant.genes.sf")):
+        tables = []
+        for tag, dirs in (("cuda", card), ("cpu", cpu)):
+            out = os.path.join(tmp, f"g_merge_{name}_{tag}.tsv")
+            assert cli.main(["quantmerge", "--quants", *dirs, *names,
+                             *flags, "-o", out]) == 0
+            with open(out) as fh:
+                rows = [ln.rstrip("\n").split("\t") for ln in fh]
+            assert rows[0] == ["Name", *names[1:]], rows[0]
+            for j, d in enumerate(dirs):
+                q = read_quant_sf(os.path.join(d, fname))
+                want = dict(zip(q["Name"], (f"{v:g}" for v in q[col])))
+                assert {r[0]: r[1 + j] for r in rows[1:]} == want, (name, d)
+            tables.append(rows)
+        (got, want) = tables
+        assert [r[0] for r in got] == [r[0] for r in want]
+        np.testing.assert_allclose(
+            np.array([r[1:] for r in got[1:]], float),
+            np.array([r[1:] for r in want[1:]], float), rtol=5e-3, atol=0.5)
+        lines[name] = len(got)
+    phase("golden", f"quantmerge of {len(card)} card runs: every cell the "
+          f"printed value of its run's file, the matrix within rtol 5e-3 / "
+          f"atol 0.5 of the merge of their CPU runs (-c TPM, -c NumReads, "
+          f"--genes; lines {lines})")
+
+
 def changed_eff_share(plain: str, corrected: str) -> float:
     """Share of the transcripts with >= 10 reads in the plain run whose
     EffectiveLength the bias-corrected run moved by more than 0.01."""
@@ -921,34 +1163,43 @@ def scale_phase(tmp: str) -> tuple:
     n_batches = math.ceil(SCALE_PAIRS / BATCH)
     pairs = ["-i", idx, "-1", r1, "-2", r2]
     bam = os.path.join(syn, "aln.bam")
-    # the draws leave quant.sf as the paired run writes it, so those
-    # modes keep the paired gate; -a and -e launch no banded_dp
+    sam = os.path.join(syn, "mappings.sam")
+    # the draws and the side outputs leave quant.sf as the paired run
+    # writes it, so those modes keep the paired gate; -a and -e launch no
+    # banded_dp. (mode, argv, gate, launches, environment)
     modes = [
-        ("paired", pairs, JAX_SPEARMAN_5K, {MAIN_BW: n_batches}),
+        ("paired", pairs, JAX_SPEARMAN_5K, {MAIN_BW: n_batches}, None),
         ("single-end", ["-i", idx, "-r", r1], JAX_SPEARMAN_5K_SINGLE,
-         {MAIN_BW: n_batches}),
+         {MAIN_BW: n_batches}, None),
         ("recoverOrphans", [*pairs, "--recoverOrphans"],
-         JAX_SPEARMAN_5K_RESCUE, {MAIN_BW: n_batches, RESCUE_BW: n_batches}),
+         JAX_SPEARMAN_5K_RESCUE, {MAIN_BW: n_batches, RESCUE_BW: n_batches},
+         None),
         ("bias", [*pairs, "--seqBias", "--gcBias"], JAX_SPEARMAN_5K_BIAS,
-         {MAIN_BW: n_batches}),
+         {MAIN_BW: n_batches}, None),
         ("bootstrap", [*pairs, "--numBootstraps", str(SCALE_BOOTSTRAPS)],
-         JAX_SPEARMAN_5K, {MAIN_BW: n_batches}),
+         JAX_SPEARMAN_5K, {MAIN_BW: n_batches}, None),
         ("gibbs", [*pairs, "--numGibbsSamples", str(SCALE_GIBBS),
-                   "--dumpEq"], JAX_SPEARMAN_5K, {MAIN_BW: n_batches}),
+                   "--dumpEq"], JAX_SPEARMAN_5K, {MAIN_BW: n_batches}, None),
         ("alignment", ["-t", os.path.join(syn, "txome.fasta"), "-a", bam],
-         JAX_SPEARMAN_5K_ALIGNMENT, {}),
+         JAX_SPEARMAN_5K_ALIGNMENT, {}, None),
         ("eqclass", ["-e", os.path.join(syn, "quant_gibbs")],
-         JAX_SPEARMAN_5K_EQCLASS, {}),
+         JAX_SPEARMAN_5K_EQCLASS, {}, None),
+        ("sparse", pairs, JAX_SPEARMAN_5K_SPARSE, {MAIN_BW: n_batches},
+         SPARSE_ENV),
+        ("mappings", [*pairs, "--writeMappings", sam, "--writeUnmappedNames"],
+         JAX_SPEARMAN_5K, {MAIN_BW: n_batches}, None),
     ]
-    runs = {}
-    for mode, argv, jax_rho, want_launches in modes:
+    runs, seconds = {}, {}
+    for mode, argv, jax_rho, want_launches, env in modes:
         extra = ""
         if mode == "alignment":
             t0 = time.perf_counter()
             stats = write_alignment_bam(syn, bam)
             t_bam = time.perf_counter() - t0
         out = os.path.join(syn, f"quant_{mode}")
-        launches, sec, clocks = run_quant(["-l", "A", *argv, "-o", out])
+        launches, sec, clocks = run_quant(["-l", "A", *argv, "-o", out],
+                                          env=env)
+        seconds[mode] = sec
         meta = json.load(open(os.path.join(out, "aux_info",
                                            "meta_info.json")))
         rho = spearman(os.path.join(out, "quant.sf"), truth)
@@ -998,6 +1249,25 @@ def scale_phase(tmp: str) -> tuple:
         elif mode == "eqclass":
             extra = (f"; num_em_iterations {meta['num_em_iterations']} over "
                      f"{meta['num_eq_classes']} classes")
+        elif mode == "sparse":
+            extra = (f"; dense paired in this call "
+                     f"{SCALE_PAIRS / seconds['paired']!r} frags/s")
+        elif mode == "mappings":
+            paired_n, orphan_n, n_rec = sam_fragments(sam)
+            assert paired_n + orphan_n == meta["num_mapped"], \
+                (paired_n, orphan_n, meta["num_mapped"])
+            assert n_rec == 2 * paired_n + orphan_n, (n_rec, paired_n)
+            with open(os.path.join(out, "aux_info",
+                                   "unmapped_names.txt")) as fh:
+                n_unmapped = sum(1 for _ in fh)
+            assert n_unmapped == meta["num_processed"] - meta["num_mapped"]
+            extra = (f"; SAM {n_rec} records = 2 x {paired_n} paired + "
+                     f"{orphan_n} orphan fragments, {n_unmapped} unmapped "
+                     f"names; sam_write_seconds "
+                     f"{clocks['sam_write_seconds']!r}, side_output_seconds "
+                     f"{clocks['side_output_seconds']!r} of the quant's "
+                     f"{sec!r} s; plain paired in this call "
+                     f"{SCALE_PAIRS / seconds['paired']!r} frags/s")
         # -e re-runs the EM alone: no fragment passes through it
         rate = "" if mode == "eqclass" else f" = {SCALE_PAIRS / sec!r} {unit}/s"
         phase("scale", f"{mode}: quant {sec!r} s{rate}; mapped "
@@ -1007,6 +1277,25 @@ def scale_phase(tmp: str) -> tuple:
               f"{jax_rho}){extra}")
         runs[mode] = launches
     return runs["paired"], runs["recoverOrphans"], syn
+
+
+def sam_fragments(path: str) -> tuple:
+    """(paired fragments, orphan fragments, records) of a --writeMappings
+    SAM: a paired fragment has two records flagged 0x1, an orphan (or
+    single-end read) one record without it; anything else fails."""
+    recs = collections.Counter()
+    paired = set()
+    with open(path) as fh:
+        for ln in fh:
+            if ln.startswith("@"):
+                continue
+            name, flag = ln.split("\t", 2)[:2]
+            recs[name] += 1
+            if int(flag) & 0x1:
+                paired.add(name)
+    bad = [n for n, c in recs.items() if c != (2 if n in paired else 1)]
+    assert not bad, bad[:5]
+    return len(paired), len(recs) - len(paired), sum(recs.values())
 
 
 def device_profile(fn) -> tuple:
@@ -1033,18 +1322,15 @@ def device_profile(fn) -> tuple:
 def profile_phase(syn: str, n_batches: int = 6) -> None:
     """Where the time of the scale set's quant goes: the host's split
     between mapping and EM (quant.quantify's own clocks), and, over a
-    few batches under torch.profiler, device time by kernel and by
-    PyTorch op, launches per batch and the device's idle share. Then the
-    same for the stages after the EM: quantify's bias clocks with
-    --seqBias --gcBias, and the bias passes, the bootstraps and the
-    Gibbs draws once each under the profiler."""
+    few batches under torch.profiler (profile_mapping, the dense and
+    the sparse seed flow), device time by kernel and by PyTorch op,
+    launches per batch and the device's idle share. Then the same for
+    the stages after the EM: quantify's bias clocks with --seqBias
+    --gcBias, and the bias passes, the bootstraps and the Gibbs draws
+    once each under the profiler."""
     import torch
-    from torch.autograd import DeviceType
     from salmon_tpu_torch import quant
     from salmon_tpu_torch.index.builder import load_index
-    from salmon_tpu_torch.io.fastq import iter_paired_chunks
-    from salmon_tpu_torch.mapping import pipeline
-    from salmon_tpu_torch.models.fld import FragmentLengthDistribution
 
     dev_t = torch.device("cuda")
     r1, r2 = (os.path.join(syn, f"reads_{i}.fastq") for i in (1, 2))
@@ -1061,7 +1347,27 @@ def profile_phase(syn: str, n_batches: int = 6) -> None:
           f"{res.num_batches} batches, EM {info['em_seconds']!r} s "
           f"({info['iterations']} iterations)")
 
-    cfg = pipeline.MapperConfig.from_index(index)
+    profile_mapping(index, r1, r2, dev_t, n_batches)
+    profile_post_em(index, res, r1, r2, dev_t)
+    profile_alignment(syn, dev_t)
+
+
+def profile_mapping(index, r1: str, r2: str, dev_t, n_batches: int = 6,
+                    turns: int = 2) -> None:
+    """map_paired_batch over n_batches batches of R = 4,096 pairs under
+    torch.profiler, the dense and the sparse seed flow in turns (dense,
+    sparse, dense, ...): wall and device busy time a batch, the device's
+    idle share, kernel launches, banded_dp's share and the top kernels
+    and PyTorch ops by device time."""
+    import dataclasses
+    import torch
+    from torch.autograd import DeviceType
+    from salmon_tpu_torch.io.fastq import iter_paired_chunks
+    from salmon_tpu_torch.mapping import pipeline
+    from salmon_tpu_torch.models.fld import FragmentLengthDistribution
+
+    cfgs = {"dense": pipeline.MapperConfig.from_index(index)}
+    cfgs["sparse"] = dataclasses.replace(cfgs["dense"], sparse_seed=True)
     dev = pipeline.device_index_tensors(index, dev_t)
     fld = FragmentLengthDistribution()
     fld_in = {"logpmf": torch.as_tensor(fld.log_pmf(), dtype=torch.float32,
@@ -1075,39 +1381,46 @@ def profile_phase(syn: str, n_batches: int = 6) -> None:
         ("codes_l", c.left.codes), ("lengths_l", c.left.lengths),
         ("codes_r", c.right.codes), ("lengths_r", c.right.lengths))}
         for _, c in zip(range(n_batches + 1), chunks)]
-    pipeline.map_paired_batch(batches[0], dev, cfg, fld_in, cp, co)
+    for cfg in cfgs.values():
+        pipeline.map_paired_batch(batches[0], dev, cfg, fld_in, cp, co)
 
-    def map_batches():
-        for b in batches[1:]:
-            out = pipeline.map_paired_batch(b, dev, cfg, fld_in, cp, co)
-            out["eq_txp"].cpu()
+    for turn in range(turns):
+        for flow, cfg in cfgs.items():
+            def map_batches():
+                for b in batches[1:]:
+                    out = pipeline.map_paired_batch(b, dev, cfg, fld_in, cp,
+                                                    co)
+                    out["eq_txp"].cpu()
 
-    wall, kernels, avg = device_profile(map_batches)
-    ops = sorted((e for e in avg if e.device_type == DeviceType.CPU
-                  and e.key.startswith("aten::")),
-                 key=lambda e: -e.self_device_time_total)
-    busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
-    launches = sum(e.count for e in kernels)
-    phase("profile", f"map_paired_batch, {n_batches} batches of R=4096: "
-          f"wall {wall / n_batches * 1e3!r} ms/batch, device busy "
-          f"{busy_s / n_batches * 1e3!r} ms/batch, idle share "
-          f"{1 - busy_s / wall!r}, {launches / n_batches!r} kernel "
-          f"launches/batch")
-    dp = [e for e in kernels if "banded_dp_kernel" in e.key]
-    dp_s = sum(e.self_device_time_total for e in dp) / 1e6
-    phase("profile", f"banded_dp: {dp_s / n_batches * 1e3!r} ms/batch, "
-          f"{sum(e.count for e in dp) / n_batches!r} launches/batch, "
-          f"{dp_s / busy_s!r} of device busy time")
-    for e in kernels[:8]:
-        phase("profile", f"kernel {e.key[:60]}: "
-              f"{e.self_device_time_total / 1e3 / n_batches!r} ms/batch, "
-              f"{e.count / n_batches!r} launches/batch")
-    for e in ops[:10]:
-        phase("profile", f"op {e.key}: "
-              f"{e.self_device_time_total / 1e3 / n_batches!r} ms/batch "
-              f"on the device, {e.count / n_batches!r} calls/batch")
-    profile_post_em(index, res, r1, r2, dev_t)
-    profile_alignment(syn, dev_t)
+            wall, kernels, avg = device_profile(map_batches)
+            ops = sorted((e for e in avg if e.device_type == DeviceType.CPU
+                          and e.key.startswith("aten::")),
+                         key=lambda e: -e.self_device_time_total)
+            busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
+            launches = sum(e.count for e in kernels)
+            tag = f"map_paired_batch {flow} (turn {turn + 1})"
+            phase("profile", f"{tag}, {n_batches} batches of R=4096: wall "
+                  f"{wall / n_batches * 1e3!r} ms/batch, device busy "
+                  f"{busy_s / n_batches * 1e3!r} ms/batch, idle share "
+                  f"{1 - busy_s / wall!r}, {launches / n_batches!r} kernel "
+                  f"launches/batch")
+            dp = [e for e in kernels if "banded_dp_kernel" in e.key]
+            dp_s = sum(e.self_device_time_total for e in dp) / 1e6
+            phase("profile", f"{tag} banded_dp: "
+                  f"{dp_s / n_batches * 1e3!r} ms/batch, "
+                  f"{sum(e.count for e in dp) / n_batches!r} launches/batch, "
+                  f"{dp_s / busy_s!r} of device busy time")
+            if turn:
+                continue
+            for e in kernels[:8]:
+                phase("profile", f"{tag} kernel {e.key[:60]}: "
+                      f"{e.self_device_time_total / 1e3 / n_batches!r} "
+                      f"ms/batch, {e.count / n_batches!r} launches/batch")
+            for e in ops[:10]:
+                phase("profile", f"{tag} op {e.key}: "
+                      f"{e.self_device_time_total / 1e3 / n_batches!r} "
+                      f"ms/batch on the device, "
+                      f"{e.count / n_batches!r} calls/batch")
 
 
 def profile_post_em(index, res, r1: str, r2: str, dev_t) -> None:
@@ -1220,6 +1533,12 @@ def main() -> int:
         golden_rescue_phase(idx, tmp)
         golden_bias_sampling_phase(idx, tmp)
         golden_alignment_phase(tmp)
+        gene_map = sample_gene_map(tmp)
+        seed_runs = golden_seed_modes_phase(idx, tmp, gene_map)
+        side = golden_side_outputs_phase(idx, tmp, gene_map)
+        golden_quantmerge_phase(
+            tmp, *([seed_runs["sparse"][d], seed_runs["rowpool-64"][d],
+                    side[d]] for d in (None, "cpu")))
         paired, rescue, syn = scale_phase(tmp)
         records[MAIN_BW]["launches"] = paired[MAIN_BW]
         records[RESCUE_BW]["launches"] = rescue[RESCUE_BW]

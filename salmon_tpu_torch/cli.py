@@ -3,17 +3,23 @@
 Counterpart of salmon_tpu/cli.py (reference src/cli/Salmon.cpp:161-327
 and src/cli/ProgramOptionsGenerator.cpp). The flag surface is the JAX
 package's, so a command line switches by replacing the module name.
-The port runs `index` and `quant` in its three modes (mapping mode on
-paired-end -1/-2 or single-end -r reads, alignment mode -a/-t and
-eq-class mode -e; bias correction, Gibbs or bootstrap draws and
---geneMap) on a CUDA device; every flag whose behaviour it does not have
-yet raises NotImplementedError naming its ROADMAP item. There is no
-online version check.
+The port runs `index`, `quant` in its three modes (mapping mode on
+paired-end -1/-2 or single-end -r reads, with the dense or the sparse
+seed flow and the side outputs --writeMappings, --writeUnmappedNames,
+--writeOrphanLinks and --profileDir; alignment mode -a/-t and eq-class
+mode -e; bias correction, Gibbs or bootstrap draws and --geneMap) on a
+CUDA device, `quantmerge` on the host, and the `alevin` stub and `swim`.
+--indexShards > 1 and single-end --writeMappings raise
+NotImplementedError naming their ROADMAP item.
+`index`, `quant` and `quantmerge` check online for a newer salmon
+version, as the JAX package does, unless --no-version-check is given or
+SALMON_NO_VERSION_CHECK is 1, TRUE or T.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import sys
@@ -150,7 +156,10 @@ def _add_quant_shared(p):
                    help="RNG seed for Gibbs/bootstrap draws")
     p.add_argument("--no-version-check", action="store_true")
     p.add_argument("--profileDir", default=None,
-                   help="(not ported yet: ROADMAP queue 1 #17)")
+                   help="write a torch.profiler trace of the mapping loop "
+                        "(host activity, and the CUDA kernels on the "
+                        "card) to this directory as a Chrome trace JSON "
+                        "(open with chrome://tracing or Perfetto)")
     p.add_argument("-q", "--quiet", action="store_true")
 
 
@@ -195,8 +204,8 @@ def _add_quant_parser(sub):
     p.add_argument("--mismatchSeedSkip", type=int, default=3)
     p.add_argument("--indexShards", type=int, default=1,
                    help="split the k-mer dictionary/occurrences over this"
-                        " many devices (not ported yet: ROADMAP queue 1"
-                        " #15)")
+                        " many devices; only 1 runs in this package, more"
+                        " raises (ROADMAP queue 1 #15)")
     p.add_argument("--disableChainingHeuristic", action="store_true")
     p.add_argument("--disableAlignmentCache", action="store_true")
     p.add_argument("--decoyThreshold", type=float, default=1.0)
@@ -320,6 +329,7 @@ def _opts_from_args(args):
         # base-position step between queried k-mer windows
         o.kmer_stride = max(1, args.mismatchSeedSkip)
         o.index_shards = args.indexShards
+        o.profile_dir = getattr(args, "profileDir", None)
         o.hit_filter_policy = args.hitFilterPolicy
         o.mimic_bt2 = args.mimicBT2
         o.mimic_strict_bt2 = args.mimicStrictBT2
@@ -387,6 +397,8 @@ def build_parser() -> argparse.ArgumentParser:
     _add_index_parser(sub)
     _add_quant_parser(sub)
     _add_quantmerge_parser(sub)
+    sub.add_parser("alevin", help="(removed upstream; stub)")
+    sub.add_parser("swim", help="perform super-secret operation")
     return ap
 
 
@@ -407,16 +419,6 @@ def cmd_index(args) -> int:
                 idx.num_targets - idx.num_valid_targets,
                 idx.kmers.shape[0])
     return 0
-
-
-# (flag given, ROADMAP item) for mapping-mode flags the port does not
-# have yet
-_UNPORTED = (
-    ("writeMappings", "--writeMappings is ROADMAP queue 1 #17"),
-    ("writeUnmappedNames", "--writeUnmappedNames is ROADMAP queue 1 #17"),
-    ("writeOrphanLinks", "--writeOrphanLinks is ROADMAP queue 1 #17"),
-    ("profileDir", "--profileDir is ROADMAP queue 1 #17"),
-)
 
 
 def cmd_quant(args, device=None) -> int:
@@ -441,9 +443,6 @@ def cmd_quant(args, device=None) -> int:
         return quantify_alignments(args, _opts_from_args(args), cmd_args,
                                    device)
 
-    for flag, item in _UNPORTED:
-        if getattr(args, flag):
-            raise NotImplementedError(item)
     if not args.index:
         logger.error("mapping-based mode requires -i/--index")
         return 1
@@ -477,10 +476,21 @@ def cmd_quant(args, device=None) -> int:
 
     opts = _opts_from_args(args)
     index = load_index(args.index)
+    unmapped_path = orphan_links_path = None
+    aux = os.path.join(args.output, args.auxDir)
+    if args.writeUnmappedNames:
+        os.makedirs(aux, exist_ok=True)
+        unmapped_path = os.path.join(aux, "unmapped_names.txt")
+    if args.writeOrphanLinks:
+        os.makedirs(aux, exist_ok=True)
+        orphan_links_path = os.path.join(aux, "orphan_links.txt")
     try:
         result = quantify(index, args.libType,
                           args.mates1 or args.unmatedReads, args.mates2,
                           opts=opts, progress=not args.quiet,
+                          unmapped_path=unmapped_path,
+                          sam_path=args.writeMappings,
+                          orphan_links_path=orphan_links_path,
                           device=device)
     except InsufficientAssignedFragments as e:
         logger.error(str(e))
@@ -502,18 +512,128 @@ def cmd_quant(args, device=None) -> int:
     return 0
 
 
+def cmd_quantmerge(args) -> int:
+    """Merge one column of several quantifications into a matrix, on the
+    host (reference src/commands/SalmonQuantMerge.cpp:219; the JAX
+    package's cmd_quantmerge, salmon_tpu/cli.py:507-559). With --genes,
+    a sample without quant.genes.sf is rolled up from its quant.sf
+    through the gene map its cmd_info.json names."""
+    from salmon_tpu_torch.io.writers import read_quant_sf
+
+    _setup_logging()
+    col_map = {"len": "Length", "elen": "EffectiveLength", "tpm": "TPM",
+               "TPM": "TPM", "numreads": "NumReads",
+               "NumReads": "NumReads"}
+    col = col_map[args.column]
+    names = args.names or [os.path.basename(os.path.normpath(q))
+                           for q in args.quants]
+    if len(names) != len(args.quants):
+        logger.error("--names length must match --quants")
+        return 1
+    fname = "quant.genes.sf" if args.genes else "quant.sf"
+    tables = []
+    for q in args.quants:
+        path = os.path.join(q, fname)
+        if not os.path.exists(path) and args.genes:
+            ci = os.path.join(q, "cmd_info.json")
+            gm = None
+            if os.path.exists(ci):
+                with open(ci) as fh:
+                    gm = json.load(fh).get("geneMap")
+            if gm and os.path.exists(gm):
+                from salmon_tpu_torch.utils.genemap import aggregate_quant_sf
+                logger.info("deriving %s from quant.sf via %s", path, gm)
+                aggregate_quant_sf(os.path.join(q, "quant.sf"), gm)
+        if not os.path.exists(path):
+            logger.error("missing %s", path)
+            return 1
+        tables.append(read_quant_sf(path))
+    all_targets = list(dict.fromkeys(nm for t in tables for nm in t["Name"]))
+    per_sample = [dict(zip(t["Name"], t[col])) for t in tables]
+    with open(args.output, "w") as fh:
+        fh.write("Name\t" + "\t".join(names) + "\n")
+        for tgt in all_targets:
+            row = [tgt]
+            for s in per_sample:
+                v = s.get(tgt)
+                row.append(args.missing if v is None else f"{v:g}")
+            fh.write("\t".join(row) + "\n")
+    logger.info("merged %d samples x %d targets -> %s", len(tables),
+                len(all_targets), args.output)
+    return 0
+
+
+def cmd_alevin() -> int:
+    """Reference: src/commands/AlevinRemoved.cpp:7-18."""
+    sys.stderr.write(
+        "The single-cell processing functionality (alevin) was removed "
+        "upstream in this refactor line and is not part of salmon_tpu.\n"
+        "Please use alevin-fry (https://github.com/COMBINE-lab/alevin-fry) "
+        "for single-cell quantification.\n")
+    return 1
+
+
+def cmd_swim() -> int:
+    sys.stdout.write(r"""
+    _____       .__
+   /  ___
+   \___ \_____  |  |  _____   ____   ____      TPU
+  /____  \__  \ |  |  /     \ /  _ \ /    \    ~~~~~>
+ /       \/ __ \|  |_|  Y Y  (  <_> )   |  \   ><(((°>
+/______  (____  /____/__|_|  /\____/|___|  /
+       \/     \/           \/            \/
+""")
+    return 0
+
+
+def _version_message(timeout_s: float = 2.0) -> str:
+    """Best-effort version check (reference getVersionMessage,
+    src/cli/VersionChecker.cpp:5-31): GET
+    combine-lab.github.io/salmon/version_info/<version> with a 2 s
+    timeout; any failure (offline machines included) gives the
+    reference's exception line, never an error."""
+    try:
+        from urllib.request import urlopen
+        url = ("https://combine-lab.github.io/salmon/version_info/"
+               + __version__)
+        with urlopen(url, timeout=timeout_s) as res:
+            if res.status == 200:
+                return "Version Info: " + res.read().decode(
+                    "utf-8", "replace")
+            return f"Version Server Response: {res.reason}\n"
+    except Exception as e:  # timeout, DNS failure, no route, ...
+        return f"Version Info Exception: {e}\n"
+
+
+def _skip_version_check(args) -> bool:
+    """The --no-version-check flag, SALMON_NO_VERSION_CHECK (1, TRUE or
+    T, any case) and the alevin command skip the check (reference
+    Salmon.cpp:218-231)."""
+    env = os.environ.get("SALMON_NO_VERSION_CHECK", "").upper()
+    return (getattr(args, "no_version_check", False)
+            or env in ("1", "TRUE", "T")
+            or args.command == "alevin")
+
+
 def main(argv=None, device=None) -> int:
     """Run one command. `device` (a torch device, e.g. "cpu") places the
     quant work; by default it is the CUDA device, and quant raises when
     there is none."""
     ap = build_parser()
     args = ap.parse_args(argv)
+    if args.command in ("index", "quant", "quantmerge") \
+            and not _skip_version_check(args):
+        sys.stderr.write(_version_message())
     if args.command == "index":
         return cmd_index(args)
     if args.command == "quant":
         return cmd_quant(args, device)
     if args.command == "quantmerge":
-        raise NotImplementedError("quantmerge is ROADMAP queue 1 #17")
+        return cmd_quantmerge(args)
+    if args.command == "alevin":
+        return cmd_alevin()
+    if args.command == "swim":
+        return cmd_swim()
     ap.print_help()
     return 1
 

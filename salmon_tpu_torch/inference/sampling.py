@@ -16,11 +16,14 @@ One formulation at every size: the JAX package switches to sort-routed
 variants (gibbs_samples_routed, bootstrap_samples_routed, over
 inference/fastem.py) at 65,536 eq entries because gathers are dear on
 the TPU; this port keeps the dense functions, as inference/em.py keeps
-one EM. Below that size the bootstraps equal the JAX package's (same
-host resampling, same per-replicate stopping rule); above it the routed
-JAX variant resamples in region order and stops all replicates
-together, so the two agree in distribution only. Gibbs draws come from
-a torch.Generator seeded with `seed`, not from jax.random: the two
+one EM, and takes the routed variant's semantics from that size on.
+Bootstraps equal the JAX package's at every size: below 65,536 entries
+each replicate is resampled in class order and stops on its own (the
+dense JAX variant); from there on, as bootstrap_samples_routed does,
+deep classes are split first, the resample is drawn over the classes in
+the routed engine's region order, and all replicates stop together,
+tested after each chunk of EM_CHUNK iterations. Gibbs draws come from a
+torch.Generator seeded with `seed`, not from jax.random: the two
 packages agree in distribution, not in streams.
 """
 
@@ -30,8 +33,9 @@ import numpy as np
 import torch
 
 from salmon_tpu_torch.constants import DEFAULTS
-from salmon_tpu_torch.inference.em import (DIGAMMA_MIN, MIN_EQ_WEIGHT,
-                                           prior_alphas)
+from salmon_tpu_torch.inference.em import (DIGAMMA_MIN, EM_CHUNK,
+                                           MIN_EQ_WEIGHT,
+                                           ROUTED_MIN_ENTRIES, prior_alphas)
 from salmon_tpu_torch.inference.eqclasses import PackedEqClasses
 
 GIBBS_BETA = 0.1  # reference: beta in sampleRoundNonCollapsedMultithreaded_
@@ -43,6 +47,29 @@ GIBBS_BETA = 0.1  # reference: beta in sampleRoundNonCollapsedMultithreaded_
 MULTINOMIAL_COUNT_CAP = 1 << 23
 # iterations between the host's "all replicates converged" checks
 BOOT_CHECK_EVERY = 10
+
+
+# class widths of the JAX package's routed engine: the smallest 1.5x-graded
+# step >= the class size (salmon_tpu/inference/fastem.py:51-68)
+_WIDTH_STEPS = np.array(
+    [1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384,
+     512, 768, 1024, 1536, 2048, 3072, 4096], np.int64)
+
+
+def _bucket_widths(sizes: np.ndarray) -> np.ndarray:
+    s = np.maximum(np.asarray(sizes).astype(np.int64), 1)
+    i = np.searchsorted(_WIDTH_STEPS, s)
+    big = i >= len(_WIDTH_STEPS)
+    out = _WIDTH_STEPS[np.minimum(i, len(_WIDTH_STEPS) - 1)]
+    # gigantic classes: the next power of two
+    out[big] = 1 << np.ceil(np.log2(s[big])).astype(np.int64)
+    return out
+
+
+def region_order(class_sizes: np.ndarray) -> np.ndarray:
+    """The routed engine's class order: a stable argsort of the padded
+    class widths (fastem.py:114-116, `c_order`)."""
+    return np.argsort(_bucket_widths(class_sizes), kind="stable")
 
 
 def split_deep_classes(eq: PackedEqClasses,
@@ -223,17 +250,27 @@ def bootstrap_samples(eq: PackedEqClasses, num_txps: int,
                       reproject: bool = False,
                       tol: float = DEFAULTS.relative_diff_tolerance,
                       max_iter: int = DEFAULTS.max_em_iterations,
-                      seed: int = 271828, device="cuda") -> np.ndarray:
+                      seed: int = 271828, device="cuda",
+                      stats: dict | None = None) -> np.ndarray:
     """Bootstrap replicates: multinomial resample of class counts on the
     host, then an independent EM/VBEM per replicate, all replicates side
     by side on `device`.
 
-    Each replicate stops on its own, as under the JAX package's
-    vmap(while_loop): after at least 50 iterations, at the first whose
-    largest relative change is <= tol; a stopped replicate keeps its
-    values while the others run on. Returns (num_boot, num_txps) float64
-    counts.
+    Below ROUTED_MIN_ENTRIES label entries each replicate stops on its
+    own, as under the JAX package's vmap(while_loop): after at least 50
+    iterations, at the first whose largest relative change is <= tol; a
+    stopped replicate keeps its values while the others run on. From
+    ROUTED_MIN_ENTRIES on, as bootstrap_samples_routed
+    (salmon_tpu/inference/sampling.py:471-551): deep classes are split,
+    the resample is drawn over the classes in region order, and every
+    replicate runs chunks of EM_CHUNK iterations until, after at least
+    50, the largest relative change of a chunk's last iteration over all
+    replicates is <= tol. `stats`, when given, receives the iteration
+    count. Returns (num_boot, num_txps) float64 counts.
     """
+    routed = eq.labels.shape[0] >= ROUTED_MIN_ENTRIES
+    if routed:
+        eq = split_deep_classes(eq)
     dcls, _ = dense_classes(eq, num_txps, device)
     labels, mask = dcls["labels"], dcls["mask"]
     eff = torch.as_tensor(np.maximum(eff_lens, 1.0), dtype=torch.float32,
@@ -248,9 +285,11 @@ def bootstrap_samples(eq: PackedEqClasses, num_txps: int,
         active[eq.labels] = True
     else:
         active = active_mask
-    uniform = float(1.0 / max(1, active.sum()))
-    alpha0 = torch.as_tensor(np.where(active, uniform * total, 0.0),
-                             dtype=torch.float32, device=device)
+    if routed:
+        a0 = np.where(active, total / max(1, active.sum()), 0.0)
+    else:
+        a0 = np.where(active, float(1.0 / max(1, active.sum())) * total, 0.0)
+    alpha0 = torch.as_tensor(a0, dtype=torch.float32, device=device)
     active_t = torch.as_tensor(active, device=device)
 
     # dense-form combined weights: aux / effLen, class-normalized
@@ -259,6 +298,11 @@ def bootstrap_samples(eq: PackedEqClasses, num_txps: int,
     cw_sum = cw.sum(dim=1, keepdim=True)
     cw = torch.where(cw_sum > 0, cw / cw_sum.clamp(min=1e-30), 0.0)
     is_single = mask & (mask.sum(dim=1, keepdim=True) == 1)
+    if routed:
+        # the routed engine gives a singleton class its count only on a
+        # slot of non-zero combined weight, count included (fastem.py:
+        # 106-112, 338-341)
+        is_single = is_single & (cw > 0) & (dcls["counts"] > 0)[:, None]
 
     def dense_update(alpha, counts):
         """alpha (K, T), counts (K, C) -> the next (K, T)."""
@@ -281,6 +325,10 @@ def bootstrap_samples(eq: PackedEqClasses, num_txps: int,
         return torch.zeros_like(alpha).index_add_(
             1, labels.reshape(-1), contrib.reshape(alpha.shape[0], -1))
 
+    def rel_diff(alpha, alpha_p):
+        return torch.where(alpha_p > cutoff, (alpha - alpha_p).abs()
+                           / alpha_p.clamp(min=1e-30), 0.0)
+
     min_iter = 50
     cutoff = DEFAULTS.alpha_check_cutoff
 
@@ -288,23 +336,45 @@ def bootstrap_samples(eq: PackedEqClasses, num_txps: int,
     # sampleWeights = class counts), the JAX package's very draw: exact
     # integer counts
     rng_h = np.random.default_rng(seed ^ 0x5A17)
-    base_counts = np.asarray(eq.counts, np.float64)
-    pvec = base_counts / max(base_counts.sum(), 1e-300)
-    counts = torch.from_numpy(rng_h.multinomial(
-        max(1, int(round(total))), pvec, size=num_boot).astype(
-            np.float32)).to(device)
+    n_draw = max(1, int(round(total)))
+    if routed:
+        # over the classes in region order, the counts as the routed
+        # pack holds them (float32), then back to class order
+        order = region_order(eq.class_sizes)
+        base_counts = np.asarray(eq.counts, np.float32).astype(
+            np.float64)[order]
+        pvec = base_counts / max(base_counts.sum(), 1e-300)
+        draws = np.empty((num_boot, C), np.float32)
+        draws[:, order] = rng_h.multinomial(n_draw, pvec, size=num_boot)
+    else:
+        base_counts = np.asarray(eq.counts, np.float64)
+        pvec = base_counts / max(base_counts.sum(), 1e-300)
+        draws = rng_h.multinomial(n_draw, pvec, size=num_boot).astype(
+            np.float32)
+    counts = torch.from_numpy(draws).to(device)
 
     alpha = alpha0.expand(num_boot, num_txps).contiguous()
-    running = torch.ones(num_boot, dtype=torch.bool, device=device)
-    for it in range(1, max(max_iter, min_iter) + 1):
-        alpha_p = dense_update(alpha, counts)
-        rel = torch.where(alpha_p > cutoff, (alpha - alpha_p).abs()
-                          / alpha_p.clamp(min=1e-30), 0.0)
-        alpha = torch.where(running[:, None], alpha_p, alpha)
-        if it >= min_iter:
-            running = running & (rel.amax(dim=1) > tol)
-            if it % BOOT_CHECK_EVERY == 0 and not bool(running.any()):
+    iters = 0
+    if routed:
+        while iters < max_iter:
+            for _ in range(min(EM_CHUNK, max_iter - iters)):
+                alpha_prev, alpha = alpha, dense_update(alpha, counts)
+                iters += 1
+            mrd = float(rel_diff(alpha_prev, alpha).max())
+            if iters >= min_iter and mrd <= tol:
                 break
+    else:
+        running = torch.ones(num_boot, dtype=torch.bool, device=device)
+        for iters in range(1, max(max_iter, min_iter) + 1):
+            alpha_p = dense_update(alpha, counts)
+            rel = rel_diff(alpha, alpha_p)
+            alpha = torch.where(running[:, None], alpha_p, alpha)
+            if iters >= min_iter:
+                running = running & (rel.amax(dim=1) > tol)
+                if iters % BOOT_CHECK_EVERY == 0 and not bool(running.any()):
+                    break
+    if stats is not None:
+        stats["iterations"] = iters
     if reproject:
         alpha = dense_update(alpha, dcls["counts"].expand(num_boot, C))
     alpha = torch.where(alpha < DEFAULTS.min_alpha, 0.0, alpha)

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import gzip
-from typing import Iterator, Sequence
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -25,12 +25,18 @@ class ReadChunk:
     """One fixed-shape chunk of encoded reads (padded with invalid=4)."""
     codes: np.ndarray            # (R, L) uint8
     lengths: np.ndarray          # (R,) int32; 0 for padding rows
+    n_valid: int = 0             # number of real reads in this chunk
+    names: Optional[list] = None  # their names (bytes), when asked for
 
 
 @dataclasses.dataclass
 class PairedChunk:
     left: ReadChunk
     right: ReadChunk
+
+    @property
+    def n_valid(self) -> int:
+        return self.left.n_valid
 
 
 def _open_maybe_gz(path: str):
@@ -39,23 +45,28 @@ def _open_maybe_gz(path: str):
     return open(path, "rb")
 
 
-def _iter_fastq_seqs(path: str):
-    """Yield the sequence bytes of each record of a FASTQ/FASTA file."""
+def _iter_fastq_seqs(path: str, want_names: bool = False):
+    """Yield the sequence bytes of each record of a FASTQ/FASTA file, or
+    (name, sequence) with want_names (the name is the header's first
+    word)."""
     with _open_maybe_gz(path) as fh:
         first = fh.read(1)
         fh.seek(0)
         if first == b">":  # FASTA reads
-            chunks = None
+            name, chunks = None, []
             for line in fh:
                 line = line.rstrip()
                 if line.startswith(b">"):
-                    if chunks is not None:
-                        yield b"".join(chunks)
+                    if name is not None:
+                        seq = b"".join(chunks)
+                        yield (name, seq) if want_names else seq
+                    name = line[1:].split()[0]
                     chunks = []
                 else:
                     chunks.append(line)
-            if chunks is not None:
-                yield b"".join(chunks)
+            if name is not None:
+                seq = b"".join(chunks)
+                yield (name, seq) if want_names else seq
             return
         while True:
             hdr = fh.readline()
@@ -64,7 +75,10 @@ def _iter_fastq_seqs(path: str):
             seq = fh.readline().rstrip()
             fh.readline()  # '+'
             fh.readline()  # quals
-            yield seq
+            if want_names:
+                yield hdr[1:].rstrip().split()[0], seq
+            else:
+                yield seq
 
 
 #: length buckets so batch shapes take only a handful of values per run
@@ -97,47 +111,62 @@ def pack_seqs(seqs: Sequence[bytes], batch_size: int, max_len: int
     return out, full_lens
 
 
-def iter_single_chunks(paths: Sequence[str], batch_size: int, max_len: int
-                       ) -> Iterator[ReadChunk]:
-    """Stream single-end reads as fixed-shape chunks."""
+def iter_single_chunks(paths: Sequence[str], batch_size: int, max_len: int,
+                       want_names: bool = False) -> Iterator[ReadChunk]:
+    """Stream single-end reads as fixed-shape chunks; with want_names
+    each chunk carries its reads' names."""
     seqs: list[bytes] = []
+    names: list[bytes] = []
 
     def chunk() -> ReadChunk:
         L = bucket_len(max(len(x) for x in seqs), max_len)
-        return ReadChunk(*pack_seqs(seqs, batch_size, L))
+        return ReadChunk(*pack_seqs(seqs, batch_size, L), len(seqs),
+                         names if want_names else None)
 
     for path in paths:
-        for seq in _iter_fastq_seqs(path):
-            seqs.append(seq)
+        for rec in _iter_fastq_seqs(path, want_names):
+            if want_names:
+                nm, rec = rec
+                names.append(nm)
+            seqs.append(rec)
             if len(seqs) == batch_size:
                 yield chunk()
-                seqs = []
+                seqs, names = [], []
     if seqs:
         yield chunk()
 
 
 def iter_paired_chunks(paths1: Sequence[str], paths2: Sequence[str],
-                       batch_size: int, max_len: int
-                       ) -> Iterator[PairedChunk]:
-    """Stream paired-end reads as fixed-shape chunk pairs."""
+                       batch_size: int, max_len: int,
+                       want_names: bool = False) -> Iterator[PairedChunk]:
+    """Stream paired-end reads as fixed-shape chunk pairs; with
+    want_names the left chunk carries the names of the first reads."""
     if len(paths1) != len(paths2):
         raise ValueError("paired-end file lists must have equal length")
     s1: list[bytes] = []
     s2: list[bytes] = []
+    names: list[bytes] = []
 
     def chunk() -> PairedChunk:
         L = bucket_len(max(max(len(x) for x in s1),
                            max(len(x) for x in s2)), max_len)
         c1, l1 = pack_seqs(s1, batch_size, L)
         c2, l2 = pack_seqs(s2, batch_size, L)
-        return PairedChunk(ReadChunk(c1, l1), ReadChunk(c2, l2))
+        n = len(s1)
+        return PairedChunk(ReadChunk(c1, l1, n,
+                                     names if want_names else None),
+                           ReadChunk(c2, l2, n))
 
     for p1, p2 in zip(paths1, paths2):
-        for a, b in zip(_iter_fastq_seqs(p1), _iter_fastq_seqs(p2)):
+        for a, b in zip(_iter_fastq_seqs(p1, want_names),
+                        _iter_fastq_seqs(p2)):
+            if want_names:
+                nm, a = a
+                names.append(nm)
             s1.append(a)
             s2.append(b)
             if len(s1) == batch_size:
                 yield chunk()
-                s1, s2 = [], []
+                s1, s2, names = [], [], []
     if s1:
         yield chunk()

@@ -3,10 +3,11 @@ reference's per-read hot loop, src/quant/SalmonQuantify.cpp:1199-1845
 and :1881-2325 processReads + processMiniBatch, as one fixed-shape
 tensor program).
 
-Counterpart of salmon_tpu/mapping/pipeline.py (dense seed flow). Stages:
+Counterpart of salmon_tpu/mapping/pipeline.py. Stages:
   1. canonical k-mer extraction            (mapping.kmers)
   2. two-choice bucket lookup              (mapping.lookup)
-  3. occurrence expansion + chain scoring  (mapping.score)
+  3. occurrence expansion + chain scoring  (mapping.score, dense; or
+     mapping.seed_sparse with sparse_seed)
   4. mate pairing / orphan fallback        (mapping.pair)
   5. banded-DP validation                  (mapping.align, CUDA kernel),
      and with --recoverOrphans the rescue of orphans' missing mates
@@ -39,12 +40,14 @@ from salmon_tpu_torch.mapping.pair import (MS_LEFT_ORPHAN, MS_PAIRED,
                                            merge_paired_with_orphans,
                                            observed_paired_code,
                                            orphan_hits)
+from salmon_tpu_torch.mapping.seed_sparse import seed_candidates_sparse
 from salmon_tpu_torch.mapping.score import (_sort_rows,
                                             candidate_read_start,
                                             diag_bucket_bits_for,
                                             expand_occurrences,
                                             score_candidates,
-                                            segment_carry_first)
+                                            segment_carry_first,
+                                            window_bits_for)
 
 logger = logging.getLogger("salmon_tpu_torch")
 
@@ -99,27 +102,32 @@ class MapperConfig:
     no_frag_length_dist: bool = DEFAULTS.no_frag_length_dist
     softclip: bool = DEFAULTS.softclip
     softclip_overhangs: bool = DEFAULTS.softclip_overhangs
+    # --writeOrphanLinks side output (SalmonQuantify.cpp:1409-1421)
+    write_orphan_links: bool = DEFAULTS.write_orphan_links
     alignment_cache: bool = DEFAULTS.alignment_cache
     weight_width: int = DEFAULTS.weight_width
+    # batch-global sparse seed flow (mapping.seed_sparse) in place of the
+    # dense (R, P*C) expansion and per-row sorts
+    sparse_seed: bool = DEFAULTS.sparse_seed
     occ_aligned: bool = False
+    # table slots carry inlined single-occurrence records: the dense
+    # expansion may pool its first-row gather over the other windows
+    inline_singles: bool = False
+    seed_hits_per_end: int = DEFAULTS.seed_hits_per_end
 
     @staticmethod
     def from_index(idx: TranscriptomeIndex, opts: SalmonDefaults = DEFAULTS,
                    **overrides) -> "MapperConfig":
-        """Configuration for `idx` under `opts`. Options of the JAX
-        package that the port does not have yet raise
-        NotImplementedError naming their ROADMAP item."""
+        """Configuration for `idx` under `opts`. SALMON_TPU_SPARSE_SEED,
+        when set, overrides opts.sparse_seed ("1" turns the sparse seed
+        flow on), as in the JAX package. An index without a monolithic
+        hash table raises NotImplementedError naming its ROADMAP
+        item."""
         if idx.table is None:
             raise NotImplementedError(
                 "this index has no monolithic hash table (genome-decoy "
                 "scale); sharded indexes are ROADMAP queue 1 #15")
-        if os.environ.get("SALMON_TPU_SPARSE_SEED", "0") not in ("", "0") \
-                or opts.sparse_seed:
-            raise NotImplementedError(
-                "the sparse seed flow is ROADMAP queue 1 #11")
-        if os.environ.get("SALMON_TPU_ROWPOOL", "0") not in ("", "0"):
-            raise NotImplementedError(
-                "the row-pool occurrence gather is ROADMAP queue 1 #19")
+        env_sparse = os.environ.get("SALMON_TPU_SPARSE_SEED")
         cfg = dict(
             k=idx.k,
             n_slots=idx.table.n_slots,
@@ -158,9 +166,15 @@ class MapperConfig:
             no_frag_length_dist=opts.no_frag_length_dist,
             softclip=opts.softclip,
             softclip_overhangs=opts.softclip_overhangs,
+            write_orphan_links=opts.write_orphan_links,
             alignment_cache=opts.alignment_cache,
             weight_width=opts.weight_width,
+            sparse_seed=(env_sparse == "1" if env_sparse
+                         else opts.sparse_seed),
+            seed_hits_per_end=opts.seed_hits_per_end,
             occ_aligned=bool(idx.info.get("occ_oct_aligned", False)),
+            inline_singles=bool(idx.info.get("table_inline_singles",
+                                             False)),
         )
         cfg.update(overrides)
         kept = int(idx.info.get("max_occs_kept", 0) or 0)
@@ -228,14 +242,19 @@ def _end_seeds(codes, lengths, dev: dict, cfg: MapperConfig):
 
 
 def _dense_candidates(km, lk, dev: dict, cfg: MapperConfig):
-    """Stage 3: dense (R, P*C) expansion + per-row sort scoring."""
+    """Stage 3: dense (R, P*C) expansion + per-row sort scoring. With
+    SALMON_TPU_ROWPOOL=N on an index with inlined single records, the
+    first-row gather is pooled per read row (score.expand_occurrences
+    row_pool), as in the JAX package."""
+    row_pool = int(os.environ.get("SALMON_TPU_ROWPOOL", "0") or 0)
     key, rpos, diag, _, n_tail_over = expand_occurrences(
         km, lk, dev["occ_oct"], cfg.occ_cap, cfg.max_occs_per_hit,
         stride=cfg.kmer_stride,
-        tail_frac=64 if (cfg.occ_aligned and cfg.occ_cap <= 8) else 8)
+        tail_frac=64 if (cfg.occ_aligned and cfg.occ_cap <= 8) else 8,
+        row_pool=row_pool if cfg.inline_singles else 0)
     n_windows = lk[0].shape[1]
     # the window field must hold every window index
-    window_bits = max(8, int(np.ceil(np.log2(max(n_windows, 2)))))
+    window_bits = window_bits_for(n_windows)
     if window_bits > 12:
         raise ValueError(
             f"{n_windows} seed windows need window_bits={window_bits} "
@@ -251,12 +270,21 @@ def _dense_candidates(km, lk, dev: dict, cfg: MapperConfig):
 
 def _seed_candidates(ends, lengths_per_end, dev: dict, cfg: MapperConfig):
     """Stages 1-3 for each read end -> [(cand, start), ...]."""
-    out = []
-    for codes, lengths in zip(ends, lengths_per_end):
-        km, lk = _end_seeds(codes, lengths, dev, cfg)
-        cand = _dense_candidates(km, lk, dev, cfg)
-        out.append((cand, candidate_read_start(cand, lengths, cfg.k)))
-    return out
+    seeded = [_end_seeds(codes, lengths, dev, cfg)
+              for codes, lengths in zip(ends, lengths_per_end)]
+    if cfg.sparse_seed:
+        P = seeded[0][1][0].shape[1]
+        cands = seed_candidates_sparse(
+            seeded, dev["occ_oct"], occ_cap=cfg.occ_cap,
+            max_occs_per_hit=cfg.max_occs_per_hit,
+            hits_per_end=cfg.seed_hits_per_end, max_cands=cfg.max_cands,
+            stride=cfg.kmer_stride,
+            diag_bucket_bits=diag_bucket_bits_for(cfg.max_tpos,
+                                                  window_bits_for(P)))
+    else:
+        cands = [_dense_candidates(km, lk, dev, cfg) for km, lk in seeded]
+    return [(cand, candidate_read_start(cand, lengths, cfg.k))
+            for cand, lengths in zip(cands, lengths_per_end)]
 
 
 def _revcomp_flip(codes):
@@ -742,8 +770,11 @@ def map_paired_from_cands(cands, batch: dict, dev: dict, cfg: MapperConfig,
                           fld: dict, compat_paired, compat_orphan) -> dict:
     """Stages 4-6 of the paired pipeline from scored seed candidates."""
     (cand_l, start_l), (cand_r, start_r) = cands
-    seed_tail_over = cand_l.pop("tail_over") + cand_r.pop("tail_over")
     len_l, len_r = batch["lengths_l"], batch["lengths_r"]
+    zero = torch.zeros((), dtype=torch.int32, device=len_l.device)
+    # the sparse flow has no tail budget
+    seed_tail_over = cand_l.pop("tail_over", zero) + cand_r.pop(
+        "tail_over", zero)
 
     paired = join_pairs(cand_l, cand_r, start_l, start_r, len_l, len_r,
                         cfg.max_pair_cands, cfg.fld_max, cfg.allow_dovetail)
@@ -810,6 +841,17 @@ def map_paired_from_cands(cands, batch: dict, dev: dict, cfg: MapperConfig,
         "fld_hist": fld_hist,
         "fmt_hist": fmt_hist,
     })
+    if cfg.write_orphan_links:
+        # orphaned mappings of both ends of fragments without a
+        # concordant pair (--writeOrphanLinks; the host formats the
+        # `txp,pos\t...:txp,pos\t...` lines)
+        out.update({
+            "orph_link_row": ~paired["has_pair"] & real_row,
+            "orphl_txp": torch.where(orph_l["valid"], orph_l["txp"], -1),
+            "orphl_pos": orph_l["pos"],
+            "orphr_txp": torch.where(orph_r["valid"], orph_r["txp"], -1),
+            "orphr_pos": orph_r["pos"],
+        })
     return out
 
 
@@ -836,10 +878,11 @@ def map_single_from_cands(cands, batch: dict, dev: dict, cfg: MapperConfig,
     observed code is 0 (fw) or 1 (rc) against a 6-wide table padded with
     False."""
     [(cand, start)] = cands
-    seed_tail_over = cand.pop("tail_over")
     lengths = batch["lengths"]
     R = lengths.shape[0]
     device = lengths.device
+    seed_tail_over = cand.pop("tail_over", torch.zeros(
+        (), dtype=torch.int32, device=device))
     joined = orphan_hits(cand, start, MS_PAIRED, cfg.max_pair_cands)
     joined["mate_status"] = torch.full((R,), MS_PAIRED, dtype=torch.int32,
                                        device=device)

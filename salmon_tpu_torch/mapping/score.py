@@ -9,12 +9,14 @@ run-length scores with segmented scans. Score = number of distinct
 k-mer positions supporting one (transcript, orientation, diagonal band)
 candidate.
 
-Only the default dense path is ported: one oct-row gather per window
-plus the budgeted tail pool (the JAX package's row_pool and inline_pool
-variants are ROADMAP queue 1 #19). Every sort is stable, so
-ties keep their input order; the JAX package sorts with
-is_stable=False, and ROADMAP queue 3 lists where that order shows.
-u32 values follow salmon_tpu_torch.utils.u32.
+The first oct row of each window comes from one gather per window, or
+from a pool: per read row (row_pool, the SALMON_TPU_ROWPOOL switch) or
+batch-global (inline_pool), over the windows whose records are not
+inlined in the table; the budgeted tail pool fetches the rows after it.
+Every sort is stable, so ties keep their input order; the JAX package
+sorts with is_stable=False, and ROADMAP queue 3 lists where that order
+shows. The pools' sorts key unique values, so there the two agree. u32
+values follow salmon_tpu_torch.utils.u32.
 """
 
 from __future__ import annotations
@@ -44,24 +46,34 @@ def gather_occ_oct(occ_oct: torch.Tensor, start: torch.Tensor, C: int):
     return torch.gather(occ_all, -2, idx)
 
 
-def segment_carry_first(values: torch.Tensor, seg_start: torch.Tensor):
+def segment_carry_first(values: torch.Tensor, seg_start: torch.Tensor,
+                        dim: int = 1):
     """For each element, the value at the last segment start at or
-    before it along dim 1 (the first element's value before any)."""
-    n = values.shape[1]
-    pos = torch.arange(n, device=values.device).expand_as(values)
-    last = torch.where(seg_start, pos, 0).cummax(dim=1).values
-    return torch.gather(values, 1, last)
+    before it along `dim` (the first element's value before any).
+    seg_start broadcasts against values: a (H, 1) flag column carries
+    whole rows along dim 0. The running max of start positions is taken
+    over seg_start's own shape, along its innermost dimension (torch's
+    scan along an outer dimension of a 2-D tensor walks each column in
+    one thread: ~86 ms for 262,144 rows on an H100)."""
+    n = values.shape[dim]
+    shape = [1] * values.dim()
+    shape[dim] = n
+    pos = torch.arange(n, device=values.device).reshape(shape)
+    last = torch.where(seg_start, pos, 0).movedim(dim, -1).cummax(
+        dim=-1).values.movedim(-1, dim)
+    return torch.gather(values, dim, last.expand_as(values))
 
 
-def _segmented_min(values: torch.Tensor, seg_start: torch.Tensor):
-    """Running minimum along dim 1 that restarts at every segment start.
+def _segmented_min(values: torch.Tensor, seg_start: torch.Tensor,
+                   dim: int = 1):
+    """Running minimum along `dim` that restarts at every segment start.
 
     Each later segment is shifted down by more than the value range, so
     one plain cummin never reaches back across a segment start."""
     v = values.to(torch.int64)
-    seg = torch.cumsum(seg_start.to(torch.int64), dim=1)
+    seg = torch.cumsum(seg_start.to(torch.int64), dim=dim)
     big = 1 << 33                            # > the int32 value range
-    return (torch.cummin(v - seg * big, dim=1).values
+    return (torch.cummin(v - seg * big, dim=dim).values
             + seg * big).to(values.dtype)
 
 
@@ -74,16 +86,26 @@ def _sort_rows(key: torch.Tensor, *payloads: torch.Tensor):
 
 def expand_occurrences(km: dict, lk, occ_oct: torch.Tensor,
                        occ_cap: int, max_occs_per_hit: int,
-                       stride: int = 1, tail_frac: int = 8):
+                       stride: int = 1, tail_frac: int = 8,
+                       inline_pool: bool = False, row_pool: int = 0):
     """Gather up to C occurrences per found k-mer window.
 
     `lk` is hash_lookup's (start, count, found, inl, itxp, ipf); window p
-    sits at read position p*stride. ONE oct row is fetched per window;
-    windows whose records spill past it (count + offset > 8) are
-    batch-globally compacted into K = max(1024, F // tail_frac) slots
-    that fetch the following ceil((C - 1) / 8) rows, the first K such
-    windows by flat index winning. Windows past the budget keep their
-    first-row records and are counted in `n_tail_over`.
+    sits at read position p*stride. Each window's first oct row comes
+    from one gather per window, or with row_pool = N (and not
+    inline_pool) from a per-read-row pool: each read's first N windows
+    that need the CSR (usable, not inlined), leftmost first, fetch their
+    row; with inline_pool from one batch-global pool of
+    K0 = max(4096, F // 3) such windows, by flat index. Windows past a
+    pool budget keep no first-row records. Windows whose records spill
+    past the first row (count + offset > 8) are batch-globally compacted
+    into K = max(1024, F // tail_frac) slots that fetch the following
+    ceil((C - 1) / 8) rows, the first K such windows by flat index
+    winning; windows past that budget keep their first-row records.
+    `n_tail_over` counts the windows past either budget, as the JAX
+    package does (a pooled window past its budget that the tail still
+    serves takes the pool's zero row for its first records, there as
+    here).
 
     The shadow-merge separator scan runs on every batch: the JAX package
     gates it behind an any-separator test, which gives identical results
@@ -111,7 +133,39 @@ def expand_occurrences(km: dict, lk, occ_oct: torch.Tensor,
     use_f = usable.reshape(F)
     inl_f = inl.reshape(F) & use_f
 
-    row0 = occ_oct[q0.clamp(0, n_oct - 1)]                 # (F, 16)
+    def rows_at(q):
+        return occ_oct[q.clamp(0, n_oct - 1)]
+
+    n_pool_over = torch.zeros((), dtype=torch.int64, device=dev)
+    if row_pool and not inline_pool:
+        # per read row: the needy windows first, each group in column
+        # order (the JAX package's packed (flag, column) sort keys unique
+        # values); the pooled rows go back to their columns, the rest
+        # stay zero
+        p_need = min(row_pool, P)
+        need2 = (use_f & ~inl_f).reshape(R, P)
+        psel = torch.argsort((~need2).to(torch.int8), dim=1,
+                             stable=True)[:, :p_need]
+        qsel = torch.gather(q0.reshape(R, P), 1, psel)
+        row0 = torch.zeros((R, P, 16), dtype=occ_oct.dtype, device=dev)
+        row0.scatter_(1, psel[:, :, None].expand(R, p_need, 16),
+                      rows_at(qsel))
+        row0 = row0.reshape(F, 16)
+        incl = torch.cumsum(need2.to(torch.int32), dim=1) <= p_need
+        got_row0 = (need2 & incl).reshape(F)
+        n_pool_over = (need2 & ~incl).sum()
+    elif inline_pool:
+        need_row = use_f & ~inl_f
+        K0 = min(F, max(4096, F // 3))
+        psel = torch.argsort((~need_row).to(torch.int8), stable=True)[:K0]
+        row0 = torch.zeros((F, 16), dtype=occ_oct.dtype, device=dev)
+        row0[psel] = rows_at(q0[psel])
+        got_row0 = need_row & (torch.cumsum(need_row.to(torch.int32), 0)
+                               <= K0)
+        n_pool_over = torch.clamp(need_row.sum() - K0, min=0)
+    else:
+        row0 = rows_at(q0)                                 # (F, 16)
+        got_row0 = use_f
 
     tail_n = max(1, -(-(C - 1) // 8))
     need = use_f & (cnt_c + off > 8)
@@ -137,7 +191,7 @@ def expand_occurrences(km: dict, lk, occ_oct: torch.Tensor,
     pf_f = torch.where(inl_f[:, None], ipf.reshape(F)[:, None], pf_f)
 
     c_idx = torch.arange(C, device=dev)
-    lane_src = (((c_idx[None, :] < 8 - off[:, None]) & use_f[:, None])
+    lane_src = (((c_idx[None, :] < 8 - off[:, None]) & got_row0[:, None])
                 | got_tail[:, None] | inl_f[:, None])
     ovalid = (use_f[:, None] & (c_idx[None, :] < cnt_c[:, None])
               & lane_src).reshape(R, N)
@@ -167,11 +221,17 @@ def expand_occurrences(km: dict, lk, occ_oct: torch.Tensor,
         torch.arange(P, dtype=torch.int32, device=dev) * stride,
         C).expand(R, N)
     diag = torch.where(orient_fw, tpos - rpos, tpos + rpos)
-    n_tail_over = torch.clamp(need.sum() - K, min=0).to(torch.int32)
+    n_tail_over = (torch.clamp(need.sum() - K, min=0)
+                   + n_pool_over).to(torch.int32)
     return key, rpos, diag, ovalid, n_tail_over
 
 
 DIAG_OFFSET = 4096  # diag >= -max_read_len, so +4096 keeps buckets >= 0
+
+
+def window_bits_for(n_windows: int) -> int:
+    """Bits of the window field of the chain sort key (>= 8)."""
+    return max(8, int(np.ceil(np.log2(max(n_windows, 2)))))
 
 
 def diag_bucket_bits_for(max_tpos: int, window_bits: int,

@@ -8,7 +8,9 @@ device (and, with a bias flag on paired reads, collect its observed
 bias histograms there) -> host eq-class / FLD / counter accumulation ->
 effective lengths -> EM/VBEM on the device -> with a bias flag, the
 bias-corrected effective lengths and a second EM -> writers, with
-Gibbs or bootstrap draws on the device when asked.
+Gibbs or bootstrap draws on the device when asked. Side outputs of the
+mapping loop: --writeMappings (SAM), --writeUnmappedNames,
+--writeOrphanLinks and --profileDir (a torch.profiler trace).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import dataclasses
 import json
 import logging
 import os
+import sys
 import time
 from typing import Optional, Sequence
 
@@ -42,6 +45,7 @@ from salmon_tpu_torch.models.bias_correct import BiasState
 from salmon_tpu_torch.models.efflen import effective_lengths
 from salmon_tpu_torch.models.fld import FragmentLengthDistribution
 from salmon_tpu_torch.utils import libformat
+from salmon_tpu_torch.utils.dna import decode_seq
 
 logger = logging.getLogger("salmon_tpu_torch")
 
@@ -136,6 +140,120 @@ def _detect_library_format(fmt_hist: np.ndarray, paired: bool) -> str:
     return o + "SF"
 
 
+def _seq_text(codes: np.ndarray, lengths: np.ndarray):
+    """text(row, rc): the bases of row `row` of a (k, L) code block, its
+    first lengths[row] codes, forward or reverse-complemented. The block
+    is decoded twice at once (invalid bases read N, as decode_seq writes
+    them); a call only slices."""
+    L = codes.shape[1]
+    fwd = decode_seq(codes.reshape(-1)).encode("ascii")
+    comp = np.where(codes < 4, 3 - codes, codes)[:, ::-1]
+    rev = decode_seq(comp.reshape(-1)).encode("ascii")
+    lens = lengths.tolist()
+
+    def text(row: int, rc: bool) -> str:
+        if rc:   # the flipped row holds the read's bases at its right end
+            return rev[(row + 1) * L - lens[row]:(row + 1) * L].decode()
+        return fwd[row * L:row * L + lens[row]].decode()
+    return text
+
+
+def _write_sam_batch(fh, index, names, chunk, out) -> None:
+    """SAM records for each mapped fragment's best alignment in a paired
+    batch (--writeMappings; approximate CIGAR = full-length match, like
+    the reference's SCORE_ONLY alignment mode). The bytes of the JAX
+    package's _write_sam_batch (salmon_tpu/quant.py:155-200), with the
+    bases decoded for the whole batch at once."""
+    n = chunk.n_valid
+    ok = _to_np(out["frag_ok"])[:n]
+    txp = _to_np(out["best_txp"])[:n]
+    keep = np.nonzero(ok & (txp < index.num_valid_targets))[0]
+    if keep.size == 0:
+        return
+    txp = txp[keep].tolist()
+    pos = _to_np(out["best_pos"])[keep].tolist()
+    fw = _to_np(out["best_fw"])[keep].tolist()
+    flen = _to_np(out["best_flen"])[keep].tolist()
+    is_p = _to_np(out["best_is_paired"])[keep].tolist()
+    l1 = chunk.left.lengths[keep].tolist()
+    seq1 = _seq_text(chunk.left.codes[keep], chunk.left.lengths[keep])
+    l2 = chunk.right.lengths[keep].tolist()
+    seq2 = _seq_text(chunk.right.codes[keep], chunk.right.lengths[keep])
+    lines = []
+    for j, i in enumerate(keep.tolist()):
+        nm = names[i]
+        nm = nm.decode() if isinstance(nm, bytes) else nm
+        rname = index.names[txp[j]]
+        L1, p, f = l1[j], pos[j], fw[j]
+        if is_p[j]:
+            L2, tl = l2[j], flen[j]
+            p1 = p if f else p + tl - L1
+            p2 = p + tl - L2 if f else p
+            f1 = 0x1 | 0x2 | 0x40 | (0x20 if f else 0x10)
+            f2 = 0x1 | 0x2 | 0x80 | (0x10 if f else 0x20)
+            lines.append(f"{nm}\t{f1}\t{rname}\t{p1 + 1}\t255\t{L1}M\t=\t"
+                         f"{p2 + 1}\t{tl if f else -tl}\t"
+                         f"{seq1(j, not f)}\t*\n"
+                         f"{nm}\t{f2}\t{rname}\t{p2 + 1}\t255\t{L2}M\t=\t"
+                         f"{p1 + 1}\t{-tl if f else tl}\t{seq2(j, f)}\t*\n")
+        else:
+            lines.append(f"{nm}\t{0 if f else 0x10}\t{rname}\t{p + 1}\t"
+                         f"255\t{L1}M\t*\t0\t0\t{seq1(j, not f)}\t*\n")
+    fh.write("".join(lines))
+
+
+def _write_orphan_links(fh, chunk, out) -> None:
+    """--writeOrphanLinks (reference SalmonQuantify.cpp:1409-1421): per
+    fragment without a concordant pair, its left end's `txp,pos` fields,
+    ':', its right end's."""
+    rowsel = _to_np(out["orph_link_row"])
+    lt, lp = _to_np(out["orphl_txp"]), _to_np(out["orphl_pos"])
+    rt, rp = _to_np(out["orphr_txp"]), _to_np(out["orphr_pos"])
+    for i in np.nonzero(rowsel[:chunk.n_valid])[0]:
+        left = "\t".join(f"{t},{p}" for t, p in
+                         zip(lt[i][lt[i] >= 0], lp[i][lt[i] >= 0]))
+        right = "\t".join(f"{t},{p}" for t, p in
+                          zip(rt[i][rt[i] >= 0], rp[i][rt[i] >= 0]))
+        if left or right:
+            fh.write(f"{left}:{right}\n")
+
+
+def _open_sam(sam_path: str, index):
+    """The --writeMappings stream (a file, or stdout for "-") with its
+    header (reference ProgramOptionsGenerator.cpp:264-271)."""
+    fh = sys.stdout if sam_path == "-" else open(sam_path, "w")
+    fh.write("@HD\tVN:1.0\tSO:unknown\n")
+    for i in range(index.num_valid_targets):
+        fh.write(f"@SQ\tSN:{index.names[i]}\t"
+                 f"LN:{int(index.complete_lengths[i])}\n")
+    fh.write("@PG\tID:salmon_tpu\tPN:salmon_tpu\n")
+    return fh
+
+
+def _start_profiler(profile_dir: str, device: torch.device):
+    """--profileDir: a torch.profiler session over the mapping loop (host
+    activity, and the card's kernels on a CUDA device)."""
+    from torch.profiler import ProfilerActivity, profile
+    os.makedirs(profile_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profiler(prof, profile_dir: str, device: torch.device) -> None:
+    """End the session and write its Chrome trace into profile_dir."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    path = os.path.join(profile_dir, time.strftime(
+        "mapping_%Y%m%d_%H%M%S") + f"_{os.getpid()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    logger.info("profiler trace -> %s", path)
+
+
 def _check_ported(opts: SalmonDefaults) -> None:
     """Options whose behaviour the port does not have yet."""
     if opts.index_shards > 1:
@@ -179,13 +297,28 @@ def _to_np(t: torch.Tensor) -> np.ndarray:
 def quantify(index: TranscriptomeIndex | str, lib_format: str,
              reads1: Sequence[str], reads2: Optional[Sequence[str]],
              opts: SalmonDefaults = DEFAULTS, progress: bool = True,
+             unmapped_path: Optional[str] = None,
+             sam_path: Optional[str] = None,
+             orphan_links_path: Optional[str] = None,
              device="cuda") -> QuantResult:
     """Mapping-based quantification on `device` (reference:
     salmonQuantify, src/quant/SalmonQuantify.cpp:2777): paired-end
-    reads, or single-end reads when `reads2` is None."""
+    reads, or single-end reads when `reads2` is None. Side outputs, as
+    in the JAX package: unmapped read names with the reference's 'u'
+    reason code to `unmapped_path` (--writeUnmappedNames), each mapped
+    fragment's best alignment as SAM to `sam_path` ("-" for stdout,
+    --writeMappings; paired runs only, as in the JAX package, whose
+    single-end runs fail there), paired runs' orphan links to `orphan_links_path`
+    (--writeOrphanLinks, with opts.write_orphan_links), and with
+    opts.profile_dir a torch.profiler trace of the mapping loop."""
     t0 = time.time()
     paired = reads2 is not None
     _check_ported(opts)
+    if sam_path is not None and not paired:
+        raise NotImplementedError(
+            "single-end --writeMappings: the JAX package's single-end "
+            "batches emit no best hit, so its records have no reference "
+            "(ROADMAP queue 3)")
     device = torch.device(device)
     if isinstance(index, str):
         index = load_index(index)
@@ -236,6 +369,13 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
     else:
         compat = compat_tensors(libformat.parse_library_format(lib_format))
 
+    want_names = unmapped_path is not None or sam_path is not None
+    unmapped_fh = open(unmapped_path, "w") if unmapped_path else None
+    orphan_fh = (open(orphan_links_path, "w")
+                 if (orphan_links_path and paired) else None)
+    sam_fh = _open_sam(sam_path, index) if sam_path is not None else None
+    side_seconds = sam_seconds = 0.0
+
     def put(a):
         return torch.from_numpy(a).to(device)
 
@@ -271,7 +411,25 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
     n_batches = 0
     last_progress = time.time()
 
-    def consume(batch, out):
+    def write_side_outputs(chunk, out):
+        nonlocal side_seconds, sam_seconds
+        t_side = time.perf_counter()
+        if orphan_fh is not None and "orph_link_row" in out:
+            _write_orphan_links(orphan_fh, chunk, out)
+        if want_names:
+            names = (chunk.left.names if paired else chunk.names) or []
+            if unmapped_fh is not None:
+                ok = _to_np(out["frag_ok"])
+                for i, nm in enumerate(names[:chunk.n_valid]):
+                    if not ok[i]:
+                        unmapped_fh.write(f"{nm.decode()} u\n")
+            if sam_fh is not None:
+                t_sam = time.perf_counter()
+                _write_sam_batch(sam_fh, index, names, chunk, out)
+                sam_seconds += time.perf_counter() - t_sam
+        side_seconds += time.perf_counter() - t_side
+
+    def consume(chunk, batch, out):
         nonlocal n_batches, last_progress, collect_seconds
         acc.add_batch(_to_np(out["eq_txp"]), _to_np(out["eq_weight"]),
                       _to_np(out["eq_bins"]) if cfg.range_bins > 0
@@ -294,6 +452,7 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
         for k in totals:
             totals[k] += int(out[k])
         fmt_hist_total[:] += _to_np(out["fmt_hist"]).astype(np.int64)
+        write_side_outputs(chunk, out)
         if totals["num_processed"] >= opts.num_burnin_frags:
             fld.freeze()
         n_batches += 1
@@ -310,15 +469,19 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
                 / max(totals["num_processed"], 1))
 
     # depth-deep host/device pipeline: consume batch N-depth while N
-    # runs (depth 1 = the reference's one-batch-stale online state)
-    depth = max(1, opts.pipeline_depth)
+    # runs (depth 1 = the reference's one-batch-stale online state;
+    # SALMON_TPU_PIPE_DEPTH overrides opts.pipeline_depth)
+    depth = max(1, int(os.environ.get("SALMON_TPU_PIPE_DEPTH",
+                                      opts.pipeline_depth)))
     pending = collections.deque()
     if paired:
         chunks = iter_paired_chunks(reads1, reads2, opts.reads_per_batch,
-                                    opts.max_read_len)
+                                    opts.max_read_len, want_names)
     else:
         chunks = iter_single_chunks(reads1, opts.reads_per_batch,
-                                    opts.max_read_len)
+                                    opts.max_read_len, want_names)
+    profile_dir = getattr(opts, "profile_dir", None)
+    prof = _start_profiler(profile_dir, device) if profile_dir else None
     for chunk in chunks:
         batch, out = submit(chunk)
         if resolved_format is None:
@@ -332,11 +495,26 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
                             resolved_format)
                 compat = compat_tensors(
                     libformat.parse_library_format(resolved_format))
-        pending.append((batch, out))
+        pending.append((chunk, batch, out))
         if len(pending) > depth:
             consume(*pending.popleft())
     while pending:
         consume(*pending.popleft())
+    if prof is not None:
+        _stop_profiler(prof, profile_dir, device)
+    for fh in (unmapped_fh, orphan_fh):
+        if fh is not None:
+            fh.close()
+    if sam_fh is not None:
+        if sam_path == "-":
+            sam_fh.flush()
+        else:
+            sam_fh.close()
+    if want_names or orphan_fh is not None:
+        side_clocks = {"side_output_seconds": side_seconds,
+                       "sam_write_seconds": sam_seconds}
+        logger.info("side output clocks (s): %s", side_clocks,
+                    extra={"clocks": side_clocks})
     if auto_detect and resolved_format is None:
         resolved_format = _detect_library_format(detect_hist, paired)
         logger.info("auto-detected library format (short input): %s",

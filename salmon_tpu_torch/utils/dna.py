@@ -18,6 +18,7 @@ _ENCODE_LUT = np.full(256, 4, dtype=np.uint8)
 for _ch, _code in (("A", 0), ("C", 1), ("G", 2), ("T", 3),
                    ("a", 0), ("c", 1), ("g", 2), ("t", 3)):
     _ENCODE_LUT[ord(_ch)] = _code
+_DECODE_LUT = np.frombuffer(b"ACGTN", dtype=np.uint8)
 
 
 def encode_seq(seq: str | bytes) -> np.ndarray:
@@ -26,6 +27,19 @@ def encode_seq(seq: str | bytes) -> np.ndarray:
         seq = seq.encode("ascii")
     raw = np.frombuffer(seq, dtype=np.uint8)
     return _ENCODE_LUT[raw]
+
+
+def decode_seq(codes: np.ndarray) -> str:
+    """Inverse of encode_seq (invalid -> 'N')."""
+    return _DECODE_LUT[np.minimum(codes, 4)].tobytes().decode("ascii")
+
+
+def revcomp_codes(codes: np.ndarray) -> np.ndarray:
+    """Reverse complement of encoded bases; invalid stays invalid."""
+    out = codes[::-1].copy()
+    valid = out < 4
+    out[valid] = 3 - out[valid]
+    return out
 
 
 def kmers_of(codes: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:

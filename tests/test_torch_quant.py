@@ -2,8 +2,8 @@
 and against the JAX package's CLI in the other mapping modes
 (single-end -r, --recoverOrphans, another --bandwidth, bias correction,
 --auxTargetFile, bootstraps), the index handed over from the JAX
-package, the port's independence from JAX, and the options it does not
-have yet.
+package, the port's independence from JAX, and what it does not have
+yet (--indexShards > 1, indexes without a monolithic table).
 
 The golden tolerances are tests/test_golden.py's: quant.sf columns
 within rtol 5e-3 / atol 0.5, lib_format_counts field for field. The
@@ -112,8 +112,9 @@ def test_cli_quant_on_jax_built_index(tmp_path):
 def test_port_runs_without_jax(tmp_path):
     """With jax unimportable, the port imports and runs index + quant,
     paired, single-end, with the rescue, with bias correction and
-    Gibbs draws, with bootstraps, in alignment mode (-a) and in eq-class
-    mode (-e)."""
+    Gibbs draws, with bootstraps, with the sparse seed flow and the side
+    outputs, in alignment mode (-a) and in eq-class mode (-e), and
+    quantmerge."""
     script = f"""
 import sys
 sys.modules["jax"] = None
@@ -138,6 +139,15 @@ assert cli.main(["quant", "-i", idx, "-l", "IU", *{READS!r}, "--seqBias",
 assert cli.main(["quant", "-i", idx, "-l", "IU", *{READS!r},
                  "--numBootstraps", "2", "-o", out + "_boot", "-q"],
                 device="cpu") == 0
+import os
+os.environ["SALMON_TPU_SPARSE_SEED"] = "1"
+assert cli.main(["quant", "-i", idx, "-l", "IU", *{READS!r},
+                 "--writeMappings", out + ".sam", "--writeUnmappedNames",
+                 "--writeOrphanLinks", "-o", out + "_sparse", "-q"],
+                device="cpu") == 0
+del os.environ["SALMON_TPU_SPARSE_SEED"]
+assert cli.main(["quantmerge", "--quants", out, out + "_sparse", "-o",
+                 out + "_merged.tsv"]) == 0
 from salmon_tpu_torch.alignment.bamio import write_bam
 from salmon_tpu_torch.io.fasta import load_transcripts
 recs, _ = load_transcripts(FASTA, noclip_polya=True)
@@ -398,11 +408,6 @@ def test_cli_bootstraps_match_jax(cli_runs):
 
 UNPORTED = [
     (["--indexShards", "2"], {}),
-    (["--writeMappings", "out.sam"], {}),
-    (["--writeUnmappedNames"], {}),
-    (["--writeOrphanLinks"], {}),
-    ([], {"SALMON_TPU_SPARSE_SEED": "1"}),
-    ([], {"SALMON_TPU_ROWPOOL": "64"}),
 ]
 
 
@@ -418,9 +423,17 @@ def test_unported_options_raise(port_index, tmp_path, monkeypatch, flags,
                   "-o", str(tmp_path / "q"), "-q"], device="cpu")
 
 
-@pytest.mark.parametrize("argv", [
-    ["quantmerge", "--quants", "a", "b", "-o", "m.tsv"],
-], ids=["quantmerge"])
-def test_unported_commands_raise(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(argv, device="cpu")
+def test_tableless_index_raises(port_index):
+    """An index without a monolithic hash table (genome-decoy scale)
+    still raises, naming ROADMAP queue 1 #15, in the dense and the
+    sparse flow."""
+    import dataclasses
+    from salmon_tpu_torch.constants import SalmonDefaults
+    from salmon_tpu_torch.index.builder import load_index
+    from salmon_tpu_torch.mapping.pipeline import MapperConfig
+    idx = dataclasses.replace(load_index(port_index), table=None)
+    sparse = SalmonDefaults()
+    sparse.sparse_seed = True
+    for opts in (SalmonDefaults(), sparse):
+        with pytest.raises(NotImplementedError, match="#15"):
+            MapperConfig.from_index(idx, opts)

@@ -4,7 +4,10 @@ package's, on equivalence classes made with numpy from a seed.
 - split_deep_classes and dense_classes: exact.
 - Bootstraps resample class counts on the host with the very numpy
   call of the JAX package, then run one EM/VBEM per replicate that
-  stops on its own. Both sum float32 in another order (and digamma
+  stops on its own; from 65,536 label entries on, as the JAX package's
+  bootstrap_samples_routed: deep classes split, the resample drawn in
+  the routed engine's region order, all replicates stopping together
+  after a chunk of 100 iterations. Both sum float32 in another order (and digamma
   differs in the last ulp), so replicates are held at rtol 1e-3 with
   atol 1e-3 reads, as tests/test_torch_em.py holds the EM: ~1e-7 per
   sum, carried through a few hundred contracting iterations. At the
@@ -164,6 +167,71 @@ def test_bootstrap_min_iterations_over_max():
         tsamp.bootstrap_samples(teq, 40, eff, 3, device="cpu", **kw),
         jsamp.bootstrap_samples(jeq, 40, eff, 3, **kw), rtol=RTOL,
         atol=ATOL)
+
+
+def test_region_order_matches_fastem():
+    """The routed engine's class order (fastem.pack_routed's c_order),
+    gigantic classes included."""
+    from salmon_tpu.inference import fastem
+    rng = np.random.default_rng(8)
+    sizes = np.concatenate([rng.integers(1, 40, 500),
+                            [4096, 4097, 9000, 1, 3]]).astype(np.int32)
+    np.testing.assert_array_equal(tsamp._bucket_widths(sizes),
+                                  fastem._bucket_widths(sizes))
+    jeq = make_eq([list(range(n)) for n in sizes], np.ones(len(sizes)),
+                  JPacked)
+    want = fastem.pack_routed(jeq, int(sizes.max()),
+                              np.full(int(sizes.max()), 100.0)).class_order
+    np.testing.assert_array_equal(tsamp.region_order(sizes), want)
+
+
+@pytest.mark.parametrize("mode", ["em", "vbem-reproject"])
+def test_bootstrap_routed_matches_jax(mode, monkeypatch):
+    """At >= 65,536 label entries, with the default tolerance, against
+    bootstrap_samples_routed: the same draws within rtol 1e-3 / atol 1e-3
+    reads, after the same number of iterations (a multiple of 100; the
+    JAX package's count is the sum of its chunks' trip counts, read by
+    wrapping fastem._em_chunk)."""
+    from salmon_tpu.inference import fastem
+    jeq, teq, eff = random_eq(3, 3000, 20000, 6)
+    assert jeq.labels.shape[0] >= tem.ROUTED_MIN_ENTRIES
+    kw = dict(BOOT[mode], vb_prior=1e-2, per_transcript_prior=True, seed=9)
+    chunks = []
+    em_chunk = fastem._em_chunk
+
+    def counted(static, arrays, alpha, prior, counts, use_vbem, n):
+        chunks.append(n)
+        return em_chunk(static, arrays, alpha, prior, counts, use_vbem, n)
+
+    monkeypatch.setattr(fastem, "_em_chunk", counted)
+    want = jsamp.bootstrap_samples_routed(jeq, 3000, eff, 2, **kw)
+    if kw.get("reproject"):
+        assert chunks.pop() == 1           # the reprojection's update
+    stats = {}
+    got = tsamp.bootstrap_samples(teq, 3000, eff, 2, device="cpu",
+                                  stats=stats, **kw)
+    assert got.shape == want.shape == (2, 3000)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    assert stats["iterations"] == sum(chunks) and len(chunks) >= 2, \
+        (stats, chunks)
+    assert stats["iterations"] % tem.EM_CHUNK == 0
+    # the replicates differ: the resampling happened
+    assert np.std(got[:, int(np.argmax(got.mean(axis=0)))]) > 0
+
+
+def test_bootstrap_routed_deep_classes():
+    """Above the threshold a class deeper than the multinomial cap is
+    split before the resample, as in the JAX package."""
+    jeq, teq, eff = random_eq(3, 3000, 20000, 6)
+    for eq in (jeq, teq):
+        eq.counts[:3] = [3e7, 1e7, 2.5e7]
+    kw = dict(use_vbem=False, vb_prior=1e-2, per_transcript_prior=True,
+              seed=4, max_iter=100)
+    want = jsamp.bootstrap_samples_routed(jeq, 3000, eff, 2, **kw)
+    got = tsamp.bootstrap_samples(teq, 3000, eff, 2, device="cpu", **kw)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    # float32 sums over ~6.6e7 reads
+    np.testing.assert_allclose(got.sum(axis=1), teq.counts.sum(), rtol=1e-4)
 
 
 def test_gibbs_conserves_counts_and_centers():

@@ -4,7 +4,7 @@
 
     python tools/jax_reference_5k.py --work-dir DIR [--port]
         [--modes paired single_end recover_orphans bias bootstrap
-                 alignment eqclass]
+                 alignment eqclass sparse]
 
 Makes the set as chip_smoke.py does (scripts/make_synthetic_txome.py),
 builds an index with `python -m salmon_tpu index -k 31`, and runs
@@ -12,9 +12,10 @@ builds an index with `python -m salmon_tpu index -k 31`, and runs
 package pins: paired, single-end (-r reads_1), paired with
 --recoverOrphans, paired with --seqBias --gcBias (bias), paired with
 --numBootstraps 30 (bootstrap), alignment mode (`-a` on the BAM that
-chip_smoke.write_alignment_bam makes, `-t` the set's FASTA) and eq-class
-mode (`-e` on the output of the JAX package's paired `--dumpEq` run);
---modes picks some of them. For each it prints the Spearman of
+chip_smoke.write_alignment_bam makes, `-t` the set's FASTA), eq-class
+mode (`-e` on the output of the JAX package's paired `--dumpEq` run) and
+paired with the sparse seed flow (sparse: SALMON_TPU_SPARSE_SEED=1 in
+the environment of that run); --modes picks some of them. For each it prints the Spearman of
 NumReads against the truth in the read names (computed as chip_smoke.py
 computes it), the mapping rate, num_orphans_rescued and
 num_em_iterations. chip_smoke.py pins these Spearman values and gates
@@ -53,7 +54,12 @@ def modes(syn: str, idx: str) -> dict:
             "bootstrap": [*pairs, "--numBootstraps", "30"],
             "alignment": ["-a", os.path.join(syn, "aln.bam"), "-t",
                           os.path.join(syn, "txome.fasta")],
-            "eqclass": ["-e", "{dump}"]}
+            "eqclass": ["-e", "{dump}"],
+            "sparse": pairs}
+
+
+# environment variables each mode sets for its runs
+MODE_ENV = {"sparse": {"SALMON_TPU_SPARSE_SEED": "1"}}
 
 
 def main() -> int:
@@ -101,9 +107,15 @@ def main() -> int:
     for mode, flags in chosen.items():
         for name, main, kw in runners:
             out = os.path.join(args.work_dir, f"{name}_{mode}")
+            env = MODE_ENV.get(mode, {})
+            os.environ.update(env)
             t0 = time.perf_counter()
-            assert main(["quant", "-l", "A", *flags, "-o", out, "-q"],
-                        **kw) == 0
+            try:
+                assert main(["quant", "-l", "A", *flags, "-o", out, "-q"],
+                            **kw) == 0
+            finally:
+                for k in env:
+                    os.environ.pop(k)
             sec = time.perf_counter() - t0
             with open(os.path.join(out, "aux_info", "meta_info.json")) as fh:
                 meta = json.load(fh)
