@@ -39,7 +39,12 @@ Phases, one line each; any failure raises and exits non-zero:
                banded_dp_kernel;
                and `quantmerge` (-c TPM, -c NumReads, --genes) of those
                runs, held to their files and to the merge of the CPU
-               runs
+               runs; then in 2 processes sharing the card (gloo):
+               --indexShards 2, on the index and on a table-less copy
+               (eq classes equal to the sparse card run), data-parallel
+               plain and with --seqBias --gcBias (within rtol 1e-3 /
+               atol 0.5 of the single-rank card run), and
+               run_em_sharded against em.optimize
   5. scale   — `index` + `quant -l A` of a 5,000-transcript /
                200,000-pair synthetic set (scripts/make_synthetic_txome.py)
                in ten modes: paired, single-end (-r reads_1), paired
@@ -56,7 +61,15 @@ Phases, one line each; any failure raises and exits non-zero:
                of NumReads against the truth in the read names, gated at
                the JAX package's value minus 0.01; the bias mode's stage
                clocks and moved effective lengths, the draws' checks and
-               the sampling clock, alignment mode's BAM and stage clocks
+               the sampling clock, alignment mode's BAM and stage clocks;
+               then in 2 processes sharing the card: `sharded2`
+               (--indexShards 2, Spearman equal to `sparse`'s) and `dp2`
+               (data-parallel), with the collectives' seconds
+With 2 or more GPUs the multi-process runs repeat over NCCL with a GPU
+per process, and at 4 as 2 reads groups of 2 index shards; --multi runs
+only them and the single-rank runs they are held to. Each process of a
+multi-process run is this script (--rank, rank_main) with the launch
+variables set, and reports its own launch counts.
 Every mode runs through the CLI with the launch counts set to 0 just
 before it and read just after. The kernels JSON line (one record per
 band the main paths run: 15, and 80 for the rescue) and the card's name
@@ -77,6 +90,7 @@ import json
 import logging
 import math
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -122,6 +136,15 @@ SCALE_PAIRS = 200_000
 BATCH = 4096            # reads per batch (the default --readBatchSize)
 MAIN_BW, RESCUE_BW = 15, 80
 SCALE_BOOTSTRAPS, SCALE_GIBBS = 30, 32   # draws in phase 5
+# multi-process runs: each rank is a process of this script (rank_main)
+# started with parallel.distributed's launch variables; a job whose
+# ranks have not all ended after RANK_TIMEOUT seconds fails
+RANK_TIMEOUT = 600
+# data-parallel runs against the single-rank card run (their steps of
+# one chunk per reads group feed the FLD and the online mass otherwise),
+# and the sharded EM against em.optimize (tests/test_parallel.py's)
+DP_RTOL, DP_ATOL = 1e-3, 0.5
+EM_RTOL, EM_ATOL = 1e-4, 1e-3
 
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores, and HBM3 bandwidth
@@ -683,8 +706,9 @@ def golden_rescue_phase(idx: str, tmp: str) -> None:
           f"25); banded_dp launches {card_launches}")
 
 
-def sf_close(got_dir: str, want_dir: str) -> float:
-    """quant.sf of two runs within rtol 5e-3 / atol 0.5 (the golden
+def sf_close(got_dir: str, want_dir: str, rtol: float = 5e-3,
+             atol: float = 0.5) -> float:
+    """quant.sf of two runs within rtol / atol (by default the golden
     tolerance); returns the largest difference."""
     import numpy as np
     sf = []
@@ -695,7 +719,7 @@ def sf_close(got_dir: str, want_dir: str) -> float:
     assert set(got) == set(want)
     g = np.array([got[k] for k in sorted(want)])
     w = np.array([want[k] for k in sorted(want)])
-    np.testing.assert_allclose(g, w, rtol=5e-3, atol=0.5)
+    np.testing.assert_allclose(g, w, rtol=rtol, atol=atol)
     return float(np.abs(g - w).max())
 
 
@@ -1137,10 +1161,10 @@ def changed_eff_share(plain: str, corrected: str) -> float:
     return float(np.mean(moved))
 
 
-def scale_phase(tmp: str) -> tuple:
-    """The modes of the 5k / 200k set. Returns (launches by band of the
-    paired run, launches by band of the --recoverOrphans run, the set's
-    directory)."""
+def scale_phase(tmp: str, only=None) -> tuple:
+    """The modes of the 5k / 200k set (those named in `only`, default
+    all). Returns ({mode: launches by band}, the set's directory,
+    {mode: (Spearman, quant seconds)})."""
     from salmon_tpu_torch import cli
 
     syn = os.path.join(tmp, "syn")
@@ -1189,8 +1213,10 @@ def scale_phase(tmp: str) -> tuple:
         ("mappings", [*pairs, "--writeMappings", sam, "--writeUnmappedNames"],
          JAX_SPEARMAN_5K, {MAIN_BW: n_batches}, None),
     ]
-    runs, seconds = {}, {}
+    runs, seconds, rho_sec = {}, {}, {}
     for mode, argv, jax_rho, want_launches, env in modes:
+        if only is not None and mode not in only:
+            continue
         extra = ""
         if mode == "alignment":
             t0 = time.perf_counter()
@@ -1270,13 +1296,19 @@ def scale_phase(tmp: str) -> tuple:
                      f"{SCALE_PAIRS / seconds['paired']!r} frags/s")
         # -e re-runs the EM alone: no fragment passes through it
         rate = "" if mode == "eqclass" else f" = {SCALE_PAIRS / sec!r} {unit}/s"
+        if "map_seconds" in clocks:
+            n = clocks["mapped_batches"]
+            extra += (f"; map_seconds {clocks['map_seconds'] / n!r} s a "
+                      f"batch, of it read_seconds "
+                      f"{clocks['read_seconds'] / n!r}")
         phase("scale", f"{mode}: quant {sec!r} s{rate}; mapped "
               f"{meta['percent_mapped']!r}%; banded_dp "
               f"launches {launches} for {n_batches} batches; NumReads "
               f"Spearman vs truth {rho!r} (JAX package on the CPU: "
               f"{jax_rho}){extra}")
         runs[mode] = launches
-    return runs["paired"], runs["recoverOrphans"], syn
+        rho_sec[mode] = (rho, sec)
+    return runs, syn, rho_sec
 
 
 def sam_fragments(path: str) -> tuple:
@@ -1521,11 +1553,382 @@ def profile_alignment(syn: str, dev_t, n_batches: int = 4) -> None:
           f"launches; top: {top}")
 
 
+def em_inputs(out: str) -> tuple:
+    """The eq classes and effective lengths of a --dumpEq run, with the
+    EM's default configuration and the starting and prior alphas that
+    em.optimize derives from them."""
+    from salmon_tpu_torch.alignment.eqmode import read_eq_classes
+    from salmon_tpu_torch.inference import em as em_mod
+    names, eff, eq = read_eq_classes(
+        os.path.join(out, "aux_info", "eq_classes.txt.gz"))
+    cfg = em_mod.EMConfig()
+    a0 = em_mod.initial_alphas(len(names), None, eq.num_fragments)
+    pri = em_mod.prior_alphas(len(names), eff, cfg.vb_prior,
+                              cfg.per_transcript_prior)
+    return eq, eff, a0, pri, cfg
+
+
+def em_sharded(world, out: str) -> dict:
+    """run_em_sharded over the world on the eq classes of `out`, as
+    em.optimize would run them on one device."""
+    import numpy as np
+    import torch
+    from salmon_tpu_torch.parallel.em import run_em_sharded
+    eq, eff, a0, pri, cfg = em_inputs(out)
+
+    def put(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype,
+                               device=world.device)
+
+    f32, i64 = torch.float32, torch.int64
+    seg = np.repeat(np.arange(eq.num_classes), eq.class_sizes)
+    t0 = time.perf_counter()
+    alpha, iters, _ = run_em_sharded(
+        world, put(eq.labels, i64), put(seg, i64), put(eq.counts, f32),
+        put(eq.weights, f32), put(eq.class_sizes, i64), put(a0, f32),
+        put(pri, f32), put(eff, f32), len(a0), cfg.use_vbem,
+        cfg.rel_diff_tolerance, cfg.min_iterations, cfg.max_iterations,
+        cfg.alpha_check_cutoff)
+    alphas = alpha.cpu().numpy().astype(np.float64)
+    alphas[alphas < cfg.min_alpha] = 0.0
+    return {"alphas": alphas.tolist(), "iterations": iters,
+            "seconds": time.perf_counter() - t0}
+
+
+def rank_main(kind: str, out_json: str, args: list) -> int:
+    """One rank of a multi-process job (`chip_smoke.py --rank KIND OUT
+    ARGS...`, started by run_jobs): it joins the group from the launch
+    variables on its GPU (cuda:{rank % GPUs visible}); 'quant' runs
+    `quant ARGS` through the CLI with the launch counts set to 0 just
+    before it (run_quant), 'em' runs run_em_sharded on the --dumpEq
+    output ARGS[0]. Its record (device, backend, launches, seconds,
+    clocks) goes to OUT."""
+    sys.path.insert(0, REPO)
+    from salmon_tpu_torch.parallel import distributed
+    world = distributed.init_from_env()
+    rec = {"rank": world.rank, "device": str(world.device),
+           "backend": world.backend}
+    if kind == "quant":
+        launches, sec, clocks = run_quant(args)
+        rec.update(launches=launches, seconds=sec, clocks=clocks)
+    else:
+        rec.update(em_sharded(world, args[0]))
+    with open(out_json, "w") as fh:
+        json.dump(rec, fh)
+    return 0
+
+
+def _free_ports(n: int) -> list:
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sk in socks:
+            sk.bind(("127.0.0.1", 0))
+        return [sk.getsockname()[1] for sk in socks]
+    finally:
+        for sk in socks:
+            sk.close()
+
+
+def run_jobs(jobs: list, tmp: str, share_gpu: bool) -> dict:
+    """Multi-process jobs, all started at once; a job is (name, ranks,
+    kind, args) as rank_main takes them. share_gpu: every rank sees the
+    first GPU only, so the ranks share it and their device collectives
+    run over gloo; else rank p takes GPU p and NCCL. Every process is
+    waited for; a rank that fails or outlives RANK_TIMEOUT fails the
+    phase, with the tail of its log. Returns {name: (wall seconds,
+    [rank records])}; launches are keyed by band."""
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    procs, start, end = [], {}, {}
+    for (name, n, kind, args), port in zip(jobs, _free_ports(len(jobs))):
+        start[name] = time.perf_counter()
+        for pid in range(n):
+            env = dict(os.environ,
+                       SALMON_TPU_COORDINATOR=f"127.0.0.1:{port}",
+                       SALMON_TPU_NUM_PROCS=str(n),
+                       SALMON_TPU_PROC_ID=str(pid))
+            if share_gpu:
+                env["CUDA_VISIBLE_DEVICES"] = visible
+            out = os.path.join(tmp, f"rank_{name}_{pid}.json")
+            log = os.path.join(tmp, f"rank_{name}_{pid}.log")
+            with open(log, "w") as fh:
+                p = subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--rank",
+                     kind, out, *args], env=env, stdout=fh,
+                    stderr=subprocess.STDOUT, cwd=REPO)
+            procs.append((name, pid, p, out, log))
+    deadline = time.monotonic() + RANK_TIMEOUT
+    failed = None
+    try:
+        while failed is None and any(p.poll() is None for _, _, p, _, _
+                                     in procs):
+            time.sleep(0.2)
+            for name, pid, p, _, log in procs:
+                if p.poll() not in (None, 0):
+                    failed = (name, pid, f"exit code {p.returncode}", log)
+            for name in start:
+                if name not in end and all(
+                        p.poll() is not None for n_, _, p, _, _ in procs
+                        if n_ == name):
+                    end[name] = time.perf_counter()
+            if failed is None and time.monotonic() > deadline:
+                name, pid, _, _, log = next(x for x in procs
+                                            if x[2].poll() is None)
+                failed = (name, pid, f"still running after {RANK_TIMEOUT} "
+                          f"s", log)
+        for name, pid, p, _, log in procs:
+            if failed is None and p.returncode != 0:
+                failed = (name, pid, f"exit code {p.returncode}", log)
+    finally:
+        for _, _, p, _, _ in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    if failed is not None:
+        name, pid, why, log = failed
+        with open(log) as fh:
+            tail = fh.read()[-4000:]
+        raise AssertionError(f"{name} rank {pid}: {why}\n{tail}")
+    out = {}
+    for name, pid, _, rec_path, _ in procs:
+        with open(rec_path) as fh:
+            rec = json.load(fh)
+        if "launches" in rec:
+            rec["launches"] = {int(k): v for k, v in rec["launches"].items()}
+        out.setdefault(name, (end.get(name, time.perf_counter())
+                              - start[name], []))[1].append(rec)
+    return out
+
+
+def check_ranks(name: str, recs: list, backend: str,
+                launches: int | None = None) -> None:
+    """Every rank ran on a GPU, its device collectives over `backend`,
+    and, for a quant, launched banded_dp at the main band only (each
+    `launches` times, when given)."""
+    for r in recs:
+        assert r["device"].startswith("cuda"), (name, r["device"])
+        assert r["backend"] == backend, (name, r["backend"], backend)
+        if "launches" in r:
+            got = r["launches"]
+            assert set(got) == {MAIN_BW} and got[MAIN_BW] > 0, (name, got)
+            if launches is not None:
+                assert got[MAIN_BW] == launches, (name, got, launches)
+
+
+def collective_clocks(recs: list) -> str:
+    """The ranks' collective seconds per mapped batch (the eq allgather
+    once), quantify's map_seconds (its start to the stream's end) less
+    the shard build a batch, of it read_seconds (reading, parsing and
+    packing the FASTQ), and the shard build's seconds: each the slowest
+    rank's."""
+    keys = ("hit_allgather", "stats_allreduce", "eq_allgather")
+    n = recs[0]["clocks"]["mapped_batches"]
+    per = max((r["clocks"]["map_seconds"]
+               - r["clocks"].get("shard_build_seconds", 0.0)) / n
+              for r in recs)
+    read = max(r["clocks"]["read_seconds"] for r in recs) / n
+    parts = [f"map_seconds {per!r} s a batch", f"read_seconds {read!r}"]
+    if "shard_build_seconds" in recs[0]["clocks"]:
+        build = max(r["clocks"]["shard_build_seconds"] for r in recs)
+        parts[0] += " less the shard build"
+        parts.append(f"shard build {build!r} s")
+    for k in keys:
+        vals = [r["clocks"][f"{k}_seconds"] for r in recs
+                if f"{k}_seconds" in r["clocks"]]
+        if vals:
+            per = "" if k == "eq_allgather" else " a batch"
+            v = max(vals) if k == "eq_allgather" else max(vals) / n
+            parts.append(f"{k} {v!r} s{per}")
+    return ", ".join(parts)
+
+
+def multi_layouts() -> list:
+    """(backend, share the first GPU, ranks) of the multi-process runs:
+    2 ranks on one GPU over gloo, and with more GPUs the same over NCCL
+    with a GPU each, and at 4 a 2 x 2 layout (2 reads groups of 2 index
+    shards)."""
+    import torch
+    n = torch.cuda.device_count()
+    return ([("gloo", True, 2)] + ([("nccl", False, 2)] if n >= 2 else [])
+            + ([("nccl", False, 4)] if n >= 4 else []))
+
+
+def golden_multi_phase(idx: str, tmp: str, gene_map: str,
+                       sparse: str) -> None:
+    """The sample pairs in 2 processes: --indexShards 2 (eq classes equal
+    to the single-rank sparse card run `sparse`, quant.sf within the
+    golden tolerance of it), the same on a table-less copy of the index,
+    data-parallel plain and with --seqBias --gcBias (within DP_RTOL /
+    DP_ATOL of the single-rank card run, every fragment processed once),
+    and run_em_sharded on the dense run's eq classes against
+    em.optimize (iterations equal, alphas within EM_RTOL / EM_ATOL). At
+    4 GPUs, --indexShards 2 on 4 ranks (2 x 2), held like the
+    data-parallel runs."""
+    import dataclasses
+    import numpy as np
+    from salmon_tpu_torch.index.builder import load_index, save_index
+    from salmon_tpu_torch.inference import em as em_mod
+
+    reads = ["-1", os.path.join(DATA, "reads_1.fastq"),
+             "-2", os.path.join(DATA, "reads_2.fastq")]
+    tl = os.path.join(tmp, "g_idx_tableless")
+    save_index(dataclasses.replace(load_index(idx), table=None), tl)
+    dense = os.path.join(tmp, "g_quant")
+    bias = os.path.join(tmp, "g_bias-gc_cuda")
+    run_quant(["-i", idx, "-l", "IU", *reads, "--seqBias", "--gcBias",
+               "-o", bias])
+    eq, eff, _, _, cfg = em_inputs(dense)
+    ref = em_mod.optimize(eq, len(eff), eff, config=cfg, device="cuda")
+    sharded = ["-l", "IU", *reads, "-g", gene_map, "--dumpEq",
+               "--indexShards", "2"]
+    for backend, share, n in multi_layouts():
+        def out(name):
+            return os.path.join(tmp, f"g_{name}_{backend}{n}")
+        if n == 2:
+            jobs = [("sharded2", 2, "quant", ["-i", idx, *sharded, "-o",
+                                              out("sharded2")]),
+                    ("sharded2-tableless", 2, "quant",
+                     ["-i", tl, *sharded, "-o", out("sharded2-tableless")]),
+                    ("dp2", 2, "quant", ["-i", idx, "-l", "IU", *reads,
+                                         "-o", out("dp2")]),
+                    ("dp2-bias", 2, "quant",
+                     ["-i", idx, "-l", "IU", *reads, "--seqBias",
+                      "--gcBias", "-o", out("dp2-bias")]),
+                    ("em2", 2, "em", [dense])]
+        else:
+            jobs = [("sharded-2x2", 4, "quant", ["-i", idx, *sharded, "-o",
+                                                 out("sharded-2x2")])]
+        res = run_jobs(jobs, tmp, share)
+        for name, (wall, recs) in res.items():
+            check_ranks(name, recs, backend)
+            if name == "em2":
+                for r in recs:
+                    assert r["iterations"] == ref["iterations"], \
+                        (r["iterations"], ref["iterations"])
+                    np.testing.assert_allclose(r["alphas"], ref["alphas"],
+                                               rtol=EM_RTOL, atol=EM_ATOL)
+                d = max(float(np.abs(np.array(r["alphas"])
+                                     - ref["alphas"]).max()) for r in recs)
+                what = (f"run_em_sharded: {ref['iterations']} iterations "
+                        f"as em.optimize, alphas within {d!r} (gate rtol "
+                        f"{EM_RTOL} / atol {EM_ATOL})")
+            else:
+                meta = json.load(open(os.path.join(
+                    out(name), "aux_info", "meta_info.json")))
+                assert meta["num_processed"] == 10000, meta["num_processed"]
+                if name.startswith("sharded2"):
+                    assert eq_class_lines(out(name)) == \
+                        eq_class_lines(sparse), f"{name}: eq classes differ"
+                    what = (f"eq classes equal to the sparse card run, "
+                            f"quant.sf within rtol 5e-3 / atol 0.5 (max "
+                            f"|diff| {sf_close(out(name), sparse):.4f})")
+                else:
+                    want = (bias if name == "dp2-bias" else
+                            sparse if name.startswith("sharded") else dense)
+                    d = sf_close(out(name), want, DP_RTOL, DP_ATOL)
+                    what = (f"quant.sf within rtol {DP_RTOL} / atol "
+                            f"{DP_ATOL} of the single-rank card run (max "
+                            f"|diff| {d:.4f}), 10000 fragments processed "
+                            f"once")
+                what += (f"; banded_dp launches by rank "
+                         f"{[r['launches'] for r in recs]}; "
+                         f"{collective_clocks(recs)}")
+            phase("golden", f"{name}, {n} ranks over {backend}: {what}; "
+                  f"wall {wall:.1f} s")
+
+
+def scale_multi_phase(syn: str, rho_sec: dict) -> None:
+    """The scale set's pairs in 2 processes: `sharded2` (--indexShards 2:
+    Spearman equal to the `sparse` mode's of this call to 1e-6, gated at
+    the JAX package's sparse value minus 0.01, banded_dp at every batch
+    on each rank) and `dp2` (data-parallel, the paired gate, banded_dp
+    at each rank's half of the batches), one job at a time; and their
+    NCCL and 2 x 2 layouts where the GPUs are there. Fragments per
+    second over the slowest rank's quant (index load and shard build
+    included, process start not), against the single-rank modes of this
+    call, and the collectives' seconds."""
+    r1, r2 = (os.path.join(syn, f"reads_{i}.fastq") for i in (1, 2))
+    truth = read_truth(r1)
+    n_batches = math.ceil(SCALE_PAIRS / BATCH)
+    pairs = ["-i", os.path.join(syn, "idx"), "-l", "A", "-1", r1, "-2", r2]
+    rho_sparse, sec_sparse = rho_sec["sparse"]
+    # the paired mode once more in a fresh process, started as a rank is
+    # (CUDA context, kernel loads and caches cold), to hold the ranks to
+    (_, recs), = run_jobs([("paired-1", 1, "quant",
+                            [*pairs, "-o", os.path.join(syn,
+                                                        "quant_paired-1")])],
+                          os.path.dirname(syn), True).values()
+    check_ranks("paired-1", recs, "nccl", launches=n_batches)
+    sec_fresh = recs[0]["seconds"]
+    phase("scale", f"paired in a process of its own: quant {sec_fresh!r} s "
+          f"= {SCALE_PAIRS / sec_fresh!r} frags/s; {collective_clocks(recs)}")
+    for backend, share, n in multi_layouts():
+        modes = ([("sharded2", ["--indexShards", "2"]), ("dp2", [])]
+                 if n == 2 else [("sharded-2x2", ["--indexShards", "2"])])
+        for mode, flags in modes:
+            name = f"{mode}-{backend}"
+            out = os.path.join(syn, f"quant_{name}")
+            (wall, recs), = run_jobs([(name, n, "quant",
+                                       [*pairs, *flags, "-o", out])],
+                                     os.path.dirname(syn), share).values()
+            n_groups = n // 2 if flags else n
+            check_ranks(name, recs, backend,
+                        launches=math.ceil(n_batches / n_groups))
+            meta = json.load(open(os.path.join(out, "aux_info",
+                                               "meta_info.json")))
+            assert meta["num_processed"] == SCALE_PAIRS, meta
+            rho = spearman(os.path.join(out, "quant.sf"), truth)
+            if flags:
+                gate = JAX_SPEARMAN_5K_SPARSE
+                if n_groups == 1:
+                    assert abs(rho - rho_sparse) <= 1e-6, (rho, rho_sparse)
+            else:
+                gate = JAX_SPEARMAN_5K
+            assert rho >= gate - 0.01, (name, rho, gate)
+            sec = max(r["seconds"] for r in recs)
+            phase("scale", f"{mode} ({n} ranks over {backend}): quant "
+                  f"{sec!r} s = {SCALE_PAIRS / sec!r} frags/s (wall with "
+                  f"the processes' start {wall!r} s); mapped "
+                  f"{meta['percent_mapped']!r}%; banded_dp launches by "
+                  f"rank {[r['launches'] for r in recs]}; "
+                  f"{collective_clocks(recs)}; NumReads Spearman vs truth "
+                  f"{rho!r} (sparse in this call {rho_sparse!r}; JAX "
+                  f"package on the CPU: {gate}); single-rank in this call: "
+                  f"paired {SCALE_PAIRS / rho_sec['paired'][1]!r} (in a "
+                  f"process of its own {SCALE_PAIRS / sec_fresh!r}), sparse "
+                  f"{SCALE_PAIRS / sec_sparse!r} frags/s")
+
+
+def multi_main() -> None:
+    """--multi: the multi-process phases alone, with the single-rank runs
+    they are held to (the golden dense and sparse runs, the scale set's
+    paired and sparse modes), for a machine with several GPUs."""
+    with tempfile.TemporaryDirectory() as tmp:
+        idx = golden_phase(tmp)
+        gene_map = sample_gene_map(tmp)
+        sparse = os.path.join(tmp, "g_sparse_cuda")
+        run_quant(["-i", idx, "-l", "IU", "-1",
+                   os.path.join(DATA, "reads_1.fastq"), "-2",
+                   os.path.join(DATA, "reads_2.fastq"), "-g", gene_map,
+                   "--dumpEq", "-o", sparse], env=SPARSE_ENV)
+        golden_multi_phase(idx, tmp, gene_map, sparse)
+        _, syn, rho_sec = scale_phase(tmp, only=("paired", "sparse"))
+        scale_multi_phase(syn, rho_sec)
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--rank"]:
+        return rank_main(sys.argv[2], sys.argv[3], sys.argv[4:])
     smi = device_phase()
     sys.path.insert(0, REPO)
     import torch
     build_phase()
+    if "--multi" in sys.argv[1:]:
+        multi_main()
+        print(f"nvidia-smi: {smi}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     records = kernel_phase()
     with tempfile.TemporaryDirectory() as tmp:
         idx = golden_phase(tmp)
@@ -1539,9 +1942,11 @@ def main() -> int:
         golden_quantmerge_phase(
             tmp, *([seed_runs["sparse"][d], seed_runs["rowpool-64"][d],
                     side[d]] for d in (None, "cpu")))
-        paired, rescue, syn = scale_phase(tmp)
-        records[MAIN_BW]["launches"] = paired[MAIN_BW]
-        records[RESCUE_BW]["launches"] = rescue[RESCUE_BW]
+        golden_multi_phase(idx, tmp, gene_map, seed_runs["sparse"][None])
+        runs, syn, rho_sec = scale_phase(tmp)
+        scale_multi_phase(syn, rho_sec)
+        records[MAIN_BW]["launches"] = runs["paired"][MAIN_BW]
+        records[RESCUE_BW]["launches"] = runs["recoverOrphans"][RESCUE_BW]
         if "--profile" in sys.argv[1:]:
             profile_phase(syn)
     order = ["name", "route", "source", "replaces", "launches",

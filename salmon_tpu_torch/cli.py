@@ -9,8 +9,12 @@ seed flow and the side outputs --writeMappings, --writeUnmappedNames,
 --writeOrphanLinks and --profileDir; alignment mode -a/-t and eq-class
 mode -e; bias correction, Gibbs or bootstrap draws and --geneMap) on a
 CUDA device, `quantmerge` on the host, and the `alevin` stub and `swim`.
---indexShards > 1 and single-end --writeMappings raise
-NotImplementedError naming their ROADMAP item.
+`quant` also runs in several processes, one per device, under the JAX
+package's launch variables (parallel.distributed, parallel.launch):
+data-parallel, or with the index sharded over the processes
+(--indexShards, which table-less genome-scale indexes need); rank 0
+writes the outputs. Single-end --writeMappings raises
+NotImplementedError naming its ROADMAP item.
 `index`, `quant` and `quantmerge` check online for a newer salmon
 version, as the JAX package does, unless --no-version-check is given or
 SALMON_NO_VERSION_CHECK is 1, TRUE or T.
@@ -204,8 +208,8 @@ def _add_quant_parser(sub):
     p.add_argument("--mismatchSeedSkip", type=int, default=3)
     p.add_argument("--indexShards", type=int, default=1,
                    help="split the k-mer dictionary/occurrences over this"
-                        " many devices; only 1 runs in this package, more"
-                        " raises (ROADMAP queue 1 #15)")
+                        " many devices (a power of two dividing the"
+                        " number of processes of the launch)")
     p.add_argument("--disableChainingHeuristic", action="store_true")
     p.add_argument("--disableAlignmentCache", action="store_true")
     p.add_argument("--decoyThreshold", type=float, default=1.0)
@@ -422,7 +426,12 @@ def cmd_index(args) -> int:
 
 
 def cmd_quant(args, device=None) -> int:
-    if device is None:
+    from salmon_tpu_torch.parallel.distributed import (init_from_env,
+                                                       process_info)
+    world = init_from_env(device)
+    if world is not None:
+        device = world.device
+    elif device is None:
         import torch
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -478,12 +487,15 @@ def cmd_quant(args, device=None) -> int:
     index = load_index(args.index)
     unmapped_path = orphan_links_path = None
     aux = os.path.join(args.output, args.auxDir)
+    # each process of a launch writes its own fragments' side outputs
+    rank, n_procs = process_info()
+    suffix = f".{rank}" if n_procs > 1 else ""
     if args.writeUnmappedNames:
         os.makedirs(aux, exist_ok=True)
-        unmapped_path = os.path.join(aux, "unmapped_names.txt")
+        unmapped_path = os.path.join(aux, f"unmapped_names.txt{suffix}")
     if args.writeOrphanLinks:
         os.makedirs(aux, exist_ok=True)
-        orphan_links_path = os.path.join(aux, "orphan_links.txt")
+        orphan_links_path = os.path.join(aux, f"orphan_links.txt{suffix}")
     try:
         result = quantify(index, args.libType,
                           args.mates1 or args.unmatedReads, args.mates2,
@@ -491,7 +503,7 @@ def cmd_quant(args, device=None) -> int:
                           unmapped_path=unmapped_path,
                           sam_path=args.writeMappings,
                           orphan_links_path=orphan_links_path,
-                          device=device)
+                          device=device, world=world)
     except InsufficientAssignedFragments as e:
         logger.error(str(e))
         n = index.num_valid_targets
@@ -499,6 +511,10 @@ def cmd_quant(args, device=None) -> int:
                                     index.names[:n],
                                     index.complete_lengths[:n])
         return 1
+    if rank != 0:
+        # every rank holds the same result; rank 0 writes it
+        logger.info("process %d done (rank 0 writes the outputs)", rank)
+        return 0
     write_outputs(result, index, args.output, opts=opts,
                   cmd_args=cmd_args,
                   dump_eq=args.dumpEq or args.dumpEqWeights,

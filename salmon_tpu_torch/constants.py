@@ -140,10 +140,10 @@ class SalmonDefaults:
                                          # (reference altSkip=3;
                                          # --mismatchSeedSkip 3 restores
                                          # the reference-parity stride)
-    # batch-global sparse seed flow; not ported (ROADMAP queue 1 #11)
+    # batch-global sparse seed flow (mapping.seed_sparse); SALMON_TPU_SPARSE_SEED overrides it
     sparse_seed: bool = False
     seed_hits_per_end: int = 32          # B: hit budget per read end in the sparse seed flow
-    index_shards: int = 1                # --indexShards; only 1 is ported (ROADMAP queue 1 #15)
+    index_shards: int = 1                # --indexShards: index shards over the ranks of a reads group
     dp_budget: int = 4                   # avg DP-validated candidates per fragment
     weight_width: int = 16               # W: score-sorted hits kept per fragment for weighting/eq emission
 

@@ -121,6 +121,21 @@ class EquivalenceClassAccumulator:
         self._chunks = [_dedupe_rows(keys, counts, wsum)]
         self._buffered = self._chunks[0][0].shape[0]
 
+    def collapsed(self) -> tuple:
+        """(keys, counts, wsum) of the table so far, one row per class."""
+        self._collapse()
+        if self._chunks:
+            return self._chunks[0]
+        return np.zeros((0, 0), np.int32), np.zeros(0), np.zeros((0, 0))
+
+    def replace_rows(self, keys: np.ndarray, counts: np.ndarray,
+                     wsum: np.ndarray, t2: int) -> None:
+        """Make the table the dedupe of these rows (the tables of several
+        accumulators, concatenated); t2: the label columns of a key."""
+        self._chunks = [_dedupe_rows(keys, counts, wsum)] if keys.size else []
+        self._ncols, self._t2 = keys.shape[1], t2
+        self._buffered = self._chunks[0][0].shape[0] if self._chunks else 0
+
     @property
     def num_classes(self) -> int:
         self._collapse()

@@ -112,13 +112,21 @@ def pack_seqs(seqs: Sequence[bytes], batch_size: int, max_len: int
 
 
 def iter_single_chunks(paths: Sequence[str], batch_size: int, max_len: int,
-                       want_names: bool = False) -> Iterator[ReadChunk]:
+                       want_names: bool = False,
+                       pick=None) -> Iterator[Optional[ReadChunk]]:
     """Stream single-end reads as fixed-shape chunks; with want_names
-    each chunk carries its reads' names."""
+    each chunk carries its reads' names. With `pick`, chunk i is packed
+    only where pick(i) holds, and is None elsewhere (a chunk that
+    another process of a multi-process run maps)."""
     seqs: list[bytes] = []
     names: list[bytes] = []
+    n_chunks = 0
 
-    def chunk() -> ReadChunk:
+    def chunk() -> Optional[ReadChunk]:
+        nonlocal n_chunks
+        n_chunks += 1
+        if pick is not None and not pick(n_chunks - 1):
+            return None
         L = bucket_len(max(len(x) for x in seqs), max_len)
         return ReadChunk(*pack_seqs(seqs, batch_size, L), len(seqs),
                          names if want_names else None)
@@ -138,18 +146,25 @@ def iter_single_chunks(paths: Sequence[str], batch_size: int, max_len: int,
 
 def iter_paired_chunks(paths1: Sequence[str], paths2: Sequence[str],
                        batch_size: int, max_len: int,
-                       want_names: bool = False) -> Iterator[PairedChunk]:
+                       want_names: bool = False,
+                       pick=None) -> Iterator[Optional[PairedChunk]]:
     """Stream paired-end reads as fixed-shape chunk pairs; with
-    want_names the left chunk carries the names of the first reads."""
+    want_names the left chunk carries the names of the first reads.
+    `pick` as in iter_single_chunks."""
     if len(paths1) != len(paths2):
         raise ValueError("paired-end file lists must have equal length")
     s1: list[bytes] = []
     s2: list[bytes] = []
     names: list[bytes] = []
+    n_chunks = 0
 
-    def chunk() -> PairedChunk:
-        L = bucket_len(max(max(len(x) for x in s1),
-                           max(len(x) for x in s2)), max_len)
+    def chunk() -> Optional[PairedChunk]:
+        nonlocal n_chunks
+        n_chunks += 1
+        if pick is not None and not pick(n_chunks - 1):
+            return None
+        L = bucket_len(max(max(len(x) for x in s1), max(len(x) for x in s2)),
+                       max_len)
         c1, l1 = pack_seqs(s1, batch_size, L)
         c2, l2 = pack_seqs(s2, batch_size, L)
         n = len(s1)

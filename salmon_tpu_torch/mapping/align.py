@@ -247,7 +247,7 @@ def _banded_dp_cuda(reads, read_ids, read_lens, ref_base, txp_lens,
             f"the banded-DP kernel takes band half-widths 0 to "
             f"{MAX_KERNEL_BANDWIDTH}, not {bandwidth}")
     if seq_words is None:
-        raise NotImplementedError(
+        raise ValueError(
             "the banded-DP kernel reads the 2-bit packed sequence words "
             "(seq_words); byte-per-base sequences run only on the CPU")
     dev = reads.device

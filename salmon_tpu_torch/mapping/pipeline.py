@@ -117,21 +117,24 @@ class MapperConfig:
 
     @staticmethod
     def from_index(idx: TranscriptomeIndex, opts: SalmonDefaults = DEFAULTS,
+                   allow_no_table: bool = False,
                    **overrides) -> "MapperConfig":
         """Configuration for `idx` under `opts`. SALMON_TPU_SPARSE_SEED,
         when set, overrides opts.sparse_seed ("1" turns the sparse seed
         flow on), as in the JAX package. An index without a monolithic
-        hash table raises NotImplementedError naming its ROADMAP
-        item."""
-        if idx.table is None:
-            raise NotImplementedError(
-                "this index has no monolithic hash table (genome-decoy "
-                "scale); sharded indexes are ROADMAP queue 1 #15")
+        hash table raises ValueError unless `allow_no_table` (the
+        sharded path, which builds a table per shard and sets n_slots
+        itself)."""
+        if idx.table is None and not allow_no_table:
+            raise ValueError(
+                "this index has no monolithic hash table (built at "
+                "genome-decoy scale); quantify with --indexShards N")
         env_sparse = os.environ.get("SALMON_TPU_SPARSE_SEED")
         cfg = dict(
             k=idx.k,
-            n_slots=idx.table.n_slots,
-            max_probes=idx.table.max_probes,
+            n_slots=idx.table.n_slots if idx.table is not None else 0,
+            max_probes=(idx.table.max_probes if idx.table is not None
+                        else 16),
             first_decoy_index=idx.first_decoy_index,
             num_txps=idx.num_targets,
             max_tpos=int(np.asarray(idx.lengths).max())
@@ -199,8 +202,8 @@ def seq4_words(idx: TranscriptomeIndex) -> np.ndarray:
     return words
 
 
-def device_index_tensors(idx: TranscriptomeIndex,
-                         device="cuda") -> dict:
+def device_index_tensors(idx: TranscriptomeIndex, device="cuda",
+                         planes=None) -> dict:
     """The index as a dict of tensors on `device`.
 
     Same contents as salmon_tpu.mapping.pipeline.device_index_arrays:
@@ -208,12 +211,16 @@ def device_index_tensors(idx: TranscriptomeIndex,
     with eight (txp, pos<<1|fwd) records per row; txp_lens int32;
     seq_off int32, or int64 past 2^31 concatenated bases; seq4, the
     (n_rows, 8) 2-bit sequence words as int32 bit patterns. The
-    byte-per-base sequence stays on the host: the DP reads seq4."""
-    n_occ = idx.occ_txp.shape[0]
-    n_oct = max((n_occ + 7) // 8, 1)
-    occ_oct = np.zeros((n_oct * 8, 2), dtype=np.int32)
-    occ_oct[:n_occ, 0] = idx.occ_txp
-    occ_oct[:n_occ, 1] = idx.occ_pf
+    byte-per-base sequence stays on the host: the DP reads seq4.
+    `planes`, (tab_rows, occ_oct), replaces the index's own table and
+    occurrences (one shard of a sharded index)."""
+    if planes is None:
+        n_occ = idx.occ_txp.shape[0]
+        n_oct = max((n_occ + 7) // 8, 1)
+        occ_oct = np.zeros((n_oct * 8, 2), dtype=np.int32)
+        occ_oct[:n_occ, 0] = idx.occ_txp
+        occ_oct[:n_occ, 1] = idx.occ_pf
+        planes = (idx.table.rows, occ_oct.reshape(n_oct, 16))
     total = int(idx.seq_offsets[-1])
     off_dtype = np.int64 if total + _SEQ4_SHIFT + 256 >= 2**31 \
         else np.int32
@@ -222,8 +229,8 @@ def device_index_tensors(idx: TranscriptomeIndex,
         return torch.tensor(np.asarray(a), device=device)
 
     return {
-        "tab_rows": put(idx.table.rows.astype(np.int32, copy=False)),
-        "occ_oct": put(occ_oct.reshape(n_oct, 16)),
+        "tab_rows": put(planes[0].astype(np.int32, copy=False)),
+        "occ_oct": put(planes[1]),
         "txp_lens": put(np.asarray(idx.lengths).astype(np.int32)),
         "seq_off": put(np.asarray(idx.seq_offsets).astype(off_dtype)),
         "seq4": put(seq4_words(idx).view(np.int32)),

@@ -1,5 +1,5 @@
 """End-to-end quantification, mapping mode (paired-end or single-end
-reads), one device.
+reads), on one device or one rank of a multi-process run.
 
 Counterpart of salmon_tpu/quant.py (reference flow: salmonQuantify ->
 processReads workers -> eq classes -> CollapsedEMOptimizer::optimize ->
@@ -10,7 +10,12 @@ effective lengths -> EM/VBEM on the device -> with a bias flag, the
 bias-corrected effective lengths and a second EM -> writers, with
 Gibbs or bootstrap draws on the device when asked. Side outputs of the
 mapping loop: --writeMappings (SAM), --writeUnmappedNames,
---writeOrphanLinks and --profileDir (a torch.profiler trace).
+--writeOrphanLinks and --profileDir (a torch.profiler trace). Under a
+multi-process launch (parallel.distributed) each rank maps its own
+chunks, data-parallel or with the index sharded over the ranks of a
+reads group (--indexShards), the batch statistics are summed over the
+ranks, and the eq tables and bias histograms are merged after the
+stream, so that every rank runs the same EM.
 """
 
 from __future__ import annotations
@@ -34,7 +39,8 @@ from salmon_tpu_torch.inference import sampling
 from salmon_tpu_torch.inference.clusters import normalize_alphas
 from salmon_tpu_torch.inference.eqclasses import EquivalenceClassAccumulator
 from salmon_tpu_torch.io import writers
-from salmon_tpu_torch.io.fastq import iter_paired_chunks, iter_single_chunks
+from salmon_tpu_torch.io.fastq import (PairedChunk, ReadChunk, bucket_len,
+                                       iter_paired_chunks, iter_single_chunks)
 from salmon_tpu_torch.mapping.pipeline import (MapperConfig,
                                                device_index_tensors,
                                                map_paired_batch,
@@ -44,6 +50,12 @@ from salmon_tpu_torch.models.bias import (bias_device_tensors,
 from salmon_tpu_torch.models.bias_correct import BiasState
 from salmon_tpu_torch.models.efflen import effective_lengths
 from salmon_tpu_torch.models.fld import FragmentLengthDistribution
+from salmon_tpu_torch.parallel import distributed
+from salmon_tpu_torch.parallel.quant_step import merge_stats
+from salmon_tpu_torch.parallel.sharded import (device_sharded_index,
+                                               sharded_config,
+                                               sharded_map_paired,
+                                               sharded_map_single, sub_block)
 from salmon_tpu_torch.utils import libformat
 from salmon_tpu_torch.utils.dna import decode_seq
 
@@ -254,10 +266,92 @@ def _stop_profiler(prof, profile_dir: str, device: torch.device) -> None:
     logger.info("profiler trace -> %s", path)
 
 
-def _check_ported(opts: SalmonDefaults) -> None:
-    """Options whose behaviour the port does not have yet."""
-    if opts.index_shards > 1:
-        raise NotImplementedError("--indexShards is ROADMAP queue 1 #15")
+def _empty_chunk(paired: bool, rows: int, width: int, want_names: bool):
+    """A chunk of padding rows only: what a rank maps where its reads
+    group has no chunk left while other groups still have."""
+    def part(names):
+        return ReadChunk(np.full((rows, width), 4, np.uint8),
+                         np.zeros(rows, np.int32), 0, names)
+    names = [] if want_names else None
+    return PairedChunk(part(names), part(None)) if paired else part(names)
+
+
+def _group_chunks(chunks, group: int, n_groups: int, own_files: bool,
+                  empty):
+    """This reads group's chunks of a multi-process run. Streams of
+    their own files (own_files) end together through a has-data vote,
+    ended groups mapping empty chunks; a stream shared by all groups
+    gives group g the g-th chunk of every n_groups (the stream packs
+    only those, the others are None), the missing tail chunks empty.
+    Either way every rank maps the same number of chunks, so their
+    collectives pair up; the chunks of two groups may differ in
+    width, as no collective spans rows of two groups."""
+    if own_files:
+        it = iter(chunks)
+        while True:
+            c = next(it, None)
+            if not distributed.any_rank(c is not None):
+                return
+            yield c if c is not None else empty()
+    n = 0
+    for n, c in enumerate(chunks, 1):
+        if (n - 1) % n_groups == group:
+            yield c
+    if 0 < n % n_groups <= group:
+        yield empty()
+
+
+def _timed_iter(it, clock: dict, key: str):
+    """The items of `it`, the seconds spent in its next() (reading,
+    parsing and packing a chunk) added to clock[key]."""
+    it = iter(it)
+    while True:
+        t = time.perf_counter()
+        try:
+            item = next(it)
+        except StopIteration:
+            return
+        finally:
+            clock[key] += time.perf_counter() - t
+        yield item
+
+
+def _sub_chunk(chunk, s: int, n_blocks: int):
+    """The s-th of n_blocks equal row blocks of a chunk (the rows a
+    rank maps past the seed stage of the sharded path)."""
+    if n_blocks == 1:
+        return chunk
+
+    def sub(rc):
+        rows = rc.codes.shape[0] // n_blocks
+        lo = s * rows
+        n = min(max(rc.n_valid - lo, 0), rows)
+        return ReadChunk(rc.codes[lo:lo + rows], rc.lengths[lo:lo + rows],
+                         n, None if rc.names is None
+                         else rc.names[lo:lo + n])
+    if isinstance(chunk, PairedChunk):
+        return PairedChunk(sub(chunk.left), sub(chunk.right))
+    return sub(chunk)
+
+
+def _merge_ranks(world, acc, bias_state, ranged: bool) -> None:
+    """After the stream: every rank's eq table and observed-bias
+    histograms become the sum over the ranks, so the replicated EM
+    agrees everywhere (mergeObservedBias, WorkerRuntimeContext.hpp:
+    22-70, for the histograms: additive and fixed-size)."""
+    if bias_state is not None:
+        o = bias_state.obs
+        (o.obs5, o.obs3, o.gc_obs, o.pos5, o.pos3, mf, mr) = \
+            distributed.allreduce_histograms(
+                [o.obs5, o.obs3, o.gc_obs, o.pos5, o.pos3,
+                 np.float64(o.mass_fwd), np.float64(o.mass_rc)])
+        o.mass_fwd, o.mass_rc = float(mf), float(mr)
+    with world.timed("eq_allgather", host=True):
+        keys, counts, wsum = distributed.allgather_eq_state(
+            *acc.collapsed())
+    # a key is the labels, then as many range-factorization bins
+    acc.replace_rows(keys, counts, wsum,
+                     keys.shape[1] // 2 if ranged else keys.shape[1])
 
 
 def _bias_on(opts: SalmonDefaults) -> bool:
@@ -300,7 +394,8 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
              unmapped_path: Optional[str] = None,
              sam_path: Optional[str] = None,
              orphan_links_path: Optional[str] = None,
-             device="cuda") -> QuantResult:
+             device="cuda",
+             world: Optional[distributed.World] = None) -> QuantResult:
     """Mapping-based quantification on `device` (reference:
     salmonQuantify, src/quant/SalmonQuantify.cpp:2777): paired-end
     reads, or single-end reads when `reads2` is None. Side outputs, as
@@ -310,10 +405,14 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
     --writeMappings; paired runs only, as in the JAX package, whose
     single-end runs fail there), paired runs' orphan links to `orphan_links_path`
     (--writeOrphanLinks, with opts.write_orphan_links), and with
-    opts.profile_dir a torch.profiler trace of the mapping loop."""
+    opts.profile_dir a torch.profiler trace of the mapping loop.
+
+    `world` is this process's place in a multi-process run: its rank
+    maps its own chunks, and the side outputs hold its own fragments.
+    With opts.index_shards S > 1 the index is sharded over the S ranks
+    of each reads group; the world's size must divide by S."""
     t0 = time.time()
     paired = reads2 is not None
-    _check_ported(opts)
     if sam_path is not None and not paired:
         raise NotImplementedError(
             "single-end --writeMappings: the JAX package's single-end "
@@ -322,8 +421,25 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
     device = torch.device(device)
     if isinstance(index, str):
         index = load_index(index)
-    cfg = MapperConfig.from_index(index, opts)
-    dev = device_index_tensors(index, device)
+    n_shards = opts.index_shards
+    group, kmer_index, n_groups = distributed.layout(
+        world.rank if world else 0, world.size if world else 1, n_shards)
+    multi = world is not None and world.size > 1
+    if multi:
+        world.reset_clocks()
+    shard_bits = 0
+    if n_shards > 1:
+        with world.timed("shard_build", host=True):
+            dev, over = device_sharded_index(index, world, n_shards)
+        cfg = sharded_config(index, over, opts)
+        shard_bits = over["shard_bits"]
+        logger.info("index sharded %d-way over the ranks of each reads "
+                    "group; %d reads groups", n_shards, n_groups)
+    else:
+        cfg = MapperConfig.from_index(index, opts)
+        dev = device_index_tensors(index, device)
+        if multi:
+            logger.info("mapping data-parallel over %d ranks", world.size)
 
     fld = FragmentLengthDistribution(
         max_val=opts.max_frag_length, prior_mu=opts.frag_len_prior_mean,
@@ -379,9 +495,19 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
     def put(a):
         return torch.from_numpy(a).to(device)
 
+    def map_batch(batch, fld_in):
+        if shard_bits:
+            fn = sharded_map_paired if paired else sharded_map_single
+            return fn(world, batch, dev, cfg, shard_bits, fld_in, *compat)
+        fn = map_paired_batch if paired else map_single_batch
+        out = fn(batch, dev, cfg, fld_in, *compat)
+        return merge_stats(world, out) if multi else out
+
     def submit(chunk):
         """Launch the mapping of one chunk (returns before the device
-        finishes)."""
+        finishes). Returns the rows of the chunk and of its device batch
+        that the outputs hold (under shards the rank's block), and the
+        outputs."""
         # FLD snapshot for this minibatch (the LogCMFCache refresh
         # analog); mode selects the fragment-prob form by burn-in stage
         processed = totals["num_processed"]
@@ -401,12 +527,17 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
         if not paired:
             batch = {"codes": put(chunk.codes),
                      "lengths": put(chunk.lengths)}
-            return batch, map_single_batch(batch, dev, cfg, fld_in, *compat)
-        batch = {"codes_l": put(chunk.left.codes),
-                 "lengths_l": put(chunk.left.lengths),
-                 "codes_r": put(chunk.right.codes),
-                 "lengths_r": put(chunk.right.lengths)}
-        return batch, map_paired_batch(batch, dev, cfg, fld_in, *compat)
+        else:
+            batch = {"codes_l": put(chunk.left.codes),
+                     "lengths_l": put(chunk.left.lengths),
+                     "codes_r": put(chunk.right.codes),
+                     "lengths_r": put(chunk.right.lengths)}
+        out = map_batch(batch, fld_in)
+        if shard_bits:
+            chunk = _sub_chunk(chunk, kmer_index, n_shards)
+            batch = {k: sub_block(v, kmer_index, n_shards)
+                     for k, v in batch.items()}
+        return chunk, batch, out
 
     n_batches = 0
     last_progress = time.time()
@@ -474,16 +605,38 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
     depth = max(1, int(os.environ.get("SALMON_TPU_PIPE_DEPTH",
                                       opts.pipeline_depth)))
     pending = collections.deque()
+    # several input files: each reads group streams its own (the files
+    # g::n_groups); one shared stream: each group packs and takes its
+    # chunks of it
+    own_files = multi and len(reads1) > 1
+    pick = None
+    if own_files:
+        reads1 = list(reads1[group::n_groups])
+        reads2 = list(reads2[group::n_groups]) if paired else None
+        logger.info("reads group %d streams %d input files", group,
+                    len(reads1))
+    elif multi:
+        def pick(i):
+            return i % n_groups == group
     if paired:
         chunks = iter_paired_chunks(reads1, reads2, opts.reads_per_batch,
-                                    opts.max_read_len, want_names)
+                                    opts.max_read_len, want_names, pick)
     else:
         chunks = iter_single_chunks(reads1, opts.reads_per_batch,
-                                    opts.max_read_len, want_names)
+                                    opts.max_read_len, want_names, pick)
+    read_clock = {"read_seconds": 0.0}
+    chunks = _timed_iter(chunks, read_clock, "read_seconds")
+    if multi:
+        # padding rows only: the narrowest width that holds a k-mer
+        width = bucket_len(cfg.k, opts.max_read_len)
+        chunks = _group_chunks(
+            chunks, group, n_groups, own_files,
+            lambda: _empty_chunk(paired, opts.reads_per_batch, width,
+                                 want_names))
     profile_dir = getattr(opts, "profile_dir", None)
     prof = _start_profiler(profile_dir, device) if profile_dir else None
     for chunk in chunks:
-        batch, out = submit(chunk)
+        chunk, batch, out = submit(chunk)
         if resolved_format is None:
             # detection batches run synchronously (reference
             # LibraryTypeDetector: 50k samples, neutral compat until then)
@@ -530,6 +683,12 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
             f"salmon_tpu_torch was only able to assign "
             f"{totals['num_mapped']} fragments (min required: "
             f"{opts.min_assigned_frags})")
+    if multi:
+        _merge_ranks(world, acc, bias_state, cfg.range_bins > 0)
+        wclocks = {f"{k}_seconds": v
+                   for k, v in world.read_clocks().items()}
+        logger.info("multi-process clocks (s): %s", wclocks,
+                    extra={"clocks": wclocks})
 
     eq = acc.finish()
     if opts.no_rich_eq_classes and eq.labels.shape[0]:
@@ -598,6 +757,11 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
     res["map_seconds"] = map_seconds
     res["em_seconds"] = time.time() - t_em
     res.update(clocks)
+    run_clocks = {"map_seconds": map_seconds, "mapped_batches": n_batches,
+                  **read_clock,
+                  "em_seconds": res["em_seconds"]}
+    logger.info("quantify clocks (s): %s", run_clocks,
+                extra={"clocks": run_clocks})
 
     counts = res["alphas"]
     names = (libformat.format_names_paired() if paired

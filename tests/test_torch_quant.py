@@ -2,8 +2,8 @@
 and against the JAX package's CLI in the other mapping modes
 (single-end -r, --recoverOrphans, another --bandwidth, bias correction,
 --auxTargetFile, bootstraps), the index handed over from the JAX
-package, the port's independence from JAX, and what it does not have
-yet (--indexShards > 1, indexes without a monolithic table).
+package and the port's independence from JAX. (--indexShards and
+table-less indexes: tests/test_torch_multiproc_quant.py.)
 
 The golden tolerances are tests/test_golden.py's: quant.sf columns
 within rtol 5e-3 / atol 0.5, lib_format_counts field for field. The
@@ -180,6 +180,11 @@ def test_no_jax_imports_in_the_port():
             dirs.remove("_build")     # build output, not the package
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    # the multi-process modules included
+    for mod in ("parallel/distributed.py", "parallel/quant_step.py",
+                "parallel/sharded.py", "parallel/em.py", "parallel/launch.py",
+                "index/shard.py"):
+        assert os.path.join(REPO, "salmon_tpu_torch", mod) in files, mod
     # nor does it load the JAX package's native library or read the JAX
     # driver's device switches
     native = re.compile(r"libsalmontpu|SALMON_TPU_ALIGN_DEVICE|"
@@ -405,35 +410,3 @@ def test_cli_bootstraps_match_jax(cli_runs):
     assert names == jnames and got.shape == want.shape == (8, len(names))
     np.testing.assert_allclose(got, want, rtol=5e-3, atol=0.5)
 
-
-UNPORTED = [
-    (["--indexShards", "2"], {}),
-]
-
-
-@pytest.mark.parametrize("flags,env", UNPORTED,
-                         ids=[" ".join(f) or next(iter(e))
-                              for f, e in UNPORTED])
-def test_unported_options_raise(port_index, tmp_path, monkeypatch, flags,
-                                env):
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["quant", "-i", port_index, "-l", "IU", *READS, *flags,
-                  "-o", str(tmp_path / "q"), "-q"], device="cpu")
-
-
-def test_tableless_index_raises(port_index):
-    """An index without a monolithic hash table (genome-decoy scale)
-    still raises, naming ROADMAP queue 1 #15, in the dense and the
-    sparse flow."""
-    import dataclasses
-    from salmon_tpu_torch.constants import SalmonDefaults
-    from salmon_tpu_torch.index.builder import load_index
-    from salmon_tpu_torch.mapping.pipeline import MapperConfig
-    idx = dataclasses.replace(load_index(port_index), table=None)
-    sparse = SalmonDefaults()
-    sparse.sparse_seed = True
-    for opts in (SalmonDefaults(), sparse):
-        with pytest.raises(NotImplementedError, match="#15"):
-            MapperConfig.from_index(idx, opts)
