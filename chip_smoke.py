@@ -41,7 +41,11 @@ Phases, one line each; any failure raises and exits non-zero:
                runs, held to their files and to the merge of the CPU
                runs; then in 2 processes sharing the card (gloo):
                --indexShards 2, on the index and on a table-less copy
-               (eq classes equal to the sparse card run), data-parallel
+               (eq classes equal to the sparse card run), and on the
+               table-less index of the port's partitioned build (2
+               bits; its keys, counts and records those of the flat
+               index without its pad records; eq classes equal to the
+               table-less copy's run), data-parallel
                plain and with --seqBias --gcBias (within rtol 1e-3 /
                atol 0.5 of the single-rank card run), and
                run_em_sharded against em.optimize
@@ -64,12 +68,20 @@ Phases, one line each; any failure raises and exits non-zero:
                the sampling clock, alignment mode's BAM and stage clocks;
                then in 2 processes sharing the card: `sharded2`
                (--indexShards 2, Spearman equal to `sparse`'s) and `dp2`
-               (data-parallel), with the collectives' seconds
+               (data-parallel), with the collectives' seconds; and
+               `sharded2-decoy`: the set's transcripts plus 2 random
+               decoy chromosomes of 4 MiB, indexed table-less by the
+               port's partitioned build (6 bits) in a process of its
+               own (stage seconds, peak RSS), quantified with
+               --indexShards 2 (Spearman equal to the single-rank
+               sparse run's on the same decoys, with a table)
 With 2 or more GPUs the multi-process runs repeat over NCCL with a GPU
 per process, and at 4 as 2 reads groups of 2 index shards; --multi runs
-only them and the single-rank runs they are held to. Each process of a
-multi-process run is this script (--rank, rank_main) with the launch
-variables set, and reports its own launch counts.
+only them and the single-rank runs they are held to (not
+`sharded2-decoy`). Each process of a multi-process run is this script
+(--rank, rank_main) with the launch variables set, and reports its own
+launch counts; the decoy index is built by this script too
+(--build-index, build_index_main).
 Every mode runs through the CLI with the launch counts set to 0 just
 before it and read just after. The kernels JSON line (one record per
 band the main paths run: 15, and 80 for the rescue) and the card's name
@@ -145,6 +157,17 @@ RANK_TIMEOUT = 600
 # and the sharded EM against em.optimize (tests/test_parallel.py's)
 DP_RTOL, DP_ATOL = 1e-3, 0.5
 EM_RTOL, EM_ATOL = 1e-4, 1e-3
+
+# `sharded2-decoy`: the scale set's transcripts plus random decoy
+# chromosomes (scripts/build_genome_scale_index.py::make_decoys' generator,
+# seed 7, at 4 MiB a chromosome), indexed by the port's partitioned build
+# at the genome scale's partition width, table-less
+DECOY_CHROMS, DECOY_CHROM_MB, DECOY_SEED = 2, 4, 7
+DECOY_PART_BITS = 6
+# Spearman of a sharded run against the single-rank sparse run of the
+# same set and index in the same call (scale_multi_phase holds
+# `sharded2` to `sparse` so too)
+SHARDED_RHO_EQ = 1e-6
 
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores, and HBM3 bandwidth
@@ -1752,17 +1775,65 @@ def multi_layouts() -> list:
             + ([("nccl", False, 4)] if n >= 4 else []))
 
 
+def drop_pads(flat) -> tuple:
+    """The flat index's CSR without its oct-alignment pad records (and
+    without the shadow-merge appendix past it): (occ_txp, occ_pf) of each
+    key's stored records, back to back."""
+    import numpy as np
+    off, cnt = np.asarray(flat.occ_offsets), np.asarray(flat.occ_counts)
+    keep = (np.repeat(off[:-1] - (np.cumsum(cnt) - cnt), cnt)
+            + np.arange(int(cnt.sum())))
+    return np.asarray(flat.occ_txp)[keep], np.asarray(flat.occ_pf)[keep]
+
+
+def golden_partitioned_index(idx: str, tmp: str) -> str:
+    """The sample transcripts (k 31) through the port's partitioned build
+    at 2 partition bits, table-less (TABLE_DIRECT_MAX_KEYS 0 in this
+    process), held to the flat index at `idx`: the same keys, counts and
+    occurrence records once the flat CSR's pad records are dropped.
+    Returns the saved index's directory."""
+    import numpy as np
+    from salmon_tpu_torch.index import builder
+
+    saved = builder.TABLE_DIRECT_MAX_KEYS
+    builder.TABLE_DIRECT_MAX_KEYS = 0
+    try:
+        t0 = time.perf_counter()
+        part = builder.build_index(os.path.join(DATA, "transcripts.fasta"),
+                                   k=31, partition_bits=2)
+        sec = time.perf_counter() - t0
+    finally:
+        builder.TABLE_DIRECT_MAX_KEYS = saved
+    assert part.table is None and part.info["requires_shards"]
+    flat = builder.load_index(idx)
+    txp, pf = drop_pads(flat)
+    np.testing.assert_array_equal(part.kmers, flat.kmers)
+    np.testing.assert_array_equal(part.occ_counts, flat.occ_counts)
+    np.testing.assert_array_equal(part.occ_txp, txp)
+    np.testing.assert_array_equal(part.occ_pf, pf)
+    out = os.path.join(tmp, "g_idx_partitioned")
+    builder.save_index(part, out)
+    phase("golden", f"partitioned build (2 bits, table-less) in {sec:.2f} "
+          f"s: {part.kmers.shape[0]} keys and {txp.shape[0]} records equal "
+          f"to the flat index's without its "
+          f"{int(flat.occ_offsets[-1]) - txp.shape[0]} pad records")
+    return out
+
+
 def golden_multi_phase(idx: str, tmp: str, gene_map: str,
                        sparse: str) -> None:
     """The sample pairs in 2 processes: --indexShards 2 (eq classes equal
     to the single-rank sparse card run `sparse`, quant.sf within the
     golden tolerance of it), the same on a table-less copy of the index,
-    data-parallel plain and with --seqBias --gcBias (within DP_RTOL /
-    DP_ATOL of the single-rank card run, every fragment processed once),
-    and run_em_sharded on the dense run's eq classes against
-    em.optimize (iterations equal, alphas within EM_RTOL / EM_ATOL). At
-    4 GPUs, --indexShards 2 on 4 ranks (2 x 2), held like the
-    data-parallel runs."""
+    the same on the table-less index of the port's partitioned build
+    (golden_partitioned_index; eq classes equal to the table-less copy's
+    run, quant.sf within the golden tolerance of it), data-parallel
+    plain and with --seqBias --gcBias (within DP_RTOL / DP_ATOL of the
+    single-rank card run, every fragment processed once), and
+    run_em_sharded on the dense run's eq classes against em.optimize
+    (iterations equal, alphas within EM_RTOL / EM_ATOL). At 4 GPUs,
+    --indexShards 2 on 4 ranks (2 x 2), held like the data-parallel
+    runs."""
     import dataclasses
     import numpy as np
     from salmon_tpu_torch.index.builder import load_index, save_index
@@ -1772,6 +1843,7 @@ def golden_multi_phase(idx: str, tmp: str, gene_map: str,
              "-2", os.path.join(DATA, "reads_2.fastq")]
     tl = os.path.join(tmp, "g_idx_tableless")
     save_index(dataclasses.replace(load_index(idx), table=None), tl)
+    ptl = golden_partitioned_index(idx, tmp)
     dense = os.path.join(tmp, "g_quant")
     bias = os.path.join(tmp, "g_bias-gc_cuda")
     run_quant(["-i", idx, "-l", "IU", *reads, "--seqBias", "--gcBias",
@@ -1788,6 +1860,9 @@ def golden_multi_phase(idx: str, tmp: str, gene_map: str,
                                               out("sharded2")]),
                     ("sharded2-tableless", 2, "quant",
                      ["-i", tl, *sharded, "-o", out("sharded2-tableless")]),
+                    ("sharded2-partitioned", 2, "quant",
+                     ["-i", ptl, *sharded, "-o",
+                      out("sharded2-partitioned")]),
                     ("dp2", 2, "quant", ["-i", idx, "-l", "IU", *reads,
                                          "-o", out("dp2")]),
                     ("dp2-bias", 2, "quant",
@@ -1815,7 +1890,14 @@ def golden_multi_phase(idx: str, tmp: str, gene_map: str,
                 meta = json.load(open(os.path.join(
                     out(name), "aux_info", "meta_info.json")))
                 assert meta["num_processed"] == 10000, meta["num_processed"]
-                if name.startswith("sharded2"):
+                if name == "sharded2-partitioned":
+                    want = out("sharded2-tableless")
+                    assert eq_class_lines(out(name)) == \
+                        eq_class_lines(want), f"{name}: eq classes differ"
+                    what = (f"eq classes equal to sharded2-tableless's, "
+                            f"quant.sf within rtol 5e-3 / atol 0.5 of it "
+                            f"(max |diff| {sf_close(out(name), want):.4f})")
+                elif name.startswith("sharded2"):
                     assert eq_class_lines(out(name)) == \
                         eq_class_lines(sparse), f"{name}: eq classes differ"
                     what = (f"eq classes equal to the sparse card run, "
@@ -1836,7 +1918,7 @@ def golden_multi_phase(idx: str, tmp: str, gene_map: str,
                   f"wall {wall:.1f} s")
 
 
-def scale_multi_phase(syn: str, rho_sec: dict) -> None:
+def scale_multi_phase(syn: str, rho_sec: dict) -> dict:
     """The scale set's pairs in 2 processes: `sharded2` (--indexShards 2:
     Spearman equal to the `sparse` mode's of this call to 1e-6, gated at
     the JAX package's sparse value minus 0.01, banded_dp at every batch
@@ -1845,7 +1927,8 @@ def scale_multi_phase(syn: str, rho_sec: dict) -> None:
     NCCL and 2 x 2 layouts where the GPUs are there. Fragments per
     second over the slowest rank's quant (index load and shard build
     included, process start not), against the single-rank modes of this
-    call, and the collectives' seconds."""
+    call, and the collectives' seconds. Returns {name: (Spearman, quant
+    seconds of the slowest rank, rank records)}."""
     r1, r2 = (os.path.join(syn, f"reads_{i}.fastq") for i in (1, 2))
     truth = read_truth(r1)
     n_batches = math.ceil(SCALE_PAIRS / BATCH)
@@ -1861,6 +1944,7 @@ def scale_multi_phase(syn: str, rho_sec: dict) -> None:
     sec_fresh = recs[0]["seconds"]
     phase("scale", f"paired in a process of its own: quant {sec_fresh!r} s "
           f"= {SCALE_PAIRS / sec_fresh!r} frags/s; {collective_clocks(recs)}")
+    done = {}
     for backend, share, n in multi_layouts():
         modes = ([("sharded2", ["--indexShards", "2"]), ("dp2", [])]
                  if n == 2 else [("sharded-2x2", ["--indexShards", "2"])])
@@ -1880,11 +1964,13 @@ def scale_multi_phase(syn: str, rho_sec: dict) -> None:
             if flags:
                 gate = JAX_SPEARMAN_5K_SPARSE
                 if n_groups == 1:
-                    assert abs(rho - rho_sparse) <= 1e-6, (rho, rho_sparse)
+                    assert abs(rho - rho_sparse) <= SHARDED_RHO_EQ, \
+                        (rho, rho_sparse)
             else:
                 gate = JAX_SPEARMAN_5K
             assert rho >= gate - 0.01, (name, rho, gate)
             sec = max(r["seconds"] for r in recs)
+            done[name] = (rho, sec, recs)
             phase("scale", f"{mode} ({n} ranks over {backend}): quant "
                   f"{sec!r} s = {SCALE_PAIRS / sec!r} frags/s (wall with "
                   f"the processes' start {wall!r} s); mapped "
@@ -1896,6 +1982,176 @@ def scale_multi_phase(syn: str, rho_sec: dict) -> None:
                   f"paired {SCALE_PAIRS / rho_sec['paired'][1]!r} (in a "
                   f"process of its own {SCALE_PAIRS / sec_fresh!r}), sparse "
                   f"{SCALE_PAIRS / sec_sparse!r} frags/s")
+    return done
+
+
+def write_decoys(path: str) -> list:
+    """DECOY_CHROMS random chromosomes of DECOY_CHROM_MB MiB from seed
+    DECOY_SEED, appended to the FASTA at `path` (the generator of
+    scripts/build_genome_scale_index.py::make_decoys). Returns their
+    names."""
+    import numpy as np
+    rng = np.random.default_rng(DECOY_SEED)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    names = [f"decoy_chr{c}" for c in range(DECOY_CHROMS)]
+    with open(path, "ab") as fh:
+        for name in names:
+            fh.write(f">{name}\n".encode())
+            seq = bases[rng.integers(0, 4, DECOY_CHROM_MB * 1024 * 1024)]
+            fh.write(seq.tobytes())
+            fh.write(b"\n")
+    return names
+
+
+def build_index_main(out_json: str, fasta: str, decoy_names: str,
+                     idx_dir: str) -> int:
+    """`chip_smoke.py --build-index OUT FASTA DECOY_NAMES IDX`, a process
+    of its own: the port's partitioned build (DECOY_PART_BITS bits) of
+    FASTA with the decoys DECOY_NAMES lists, first table-less
+    (TABLE_DIRECT_MAX_KEYS 0 in this process), saved to IDX, then with
+    its table, saved to IDX_table. Its record goes to OUT: the
+    table-less build's stage clocks, build and save seconds, the
+    process's peak RSS after that build and after its save, the
+    index's sizes, and the second build's seconds and table clock."""
+    import resource
+
+    sys.path.insert(0, REPO)
+    from salmon_tpu_torch.index import builder
+
+    def peak_rss():
+        return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+    def build(table: bool):
+        saved = builder.TABLE_DIRECT_MAX_KEYS
+        if not table:
+            builder.TABLE_DIRECT_MAX_KEYS = 0
+        clocks = StageClocks()
+        log.addHandler(clocks)
+        try:
+            t0 = time.perf_counter()
+            idx = builder.build_index(fasta, k=31,
+                                      decoy_names_path=decoy_names,
+                                      partition_bits=DECOY_PART_BITS)
+            sec = time.perf_counter() - t0
+        finally:
+            log.removeHandler(clocks)
+            builder.TABLE_DIRECT_MAX_KEYS = saved
+        return idx, sec, clocks.clocks
+
+    log = logging.getLogger("salmon_tpu_torch")
+    log.setLevel(logging.INFO)
+    idx, sec, clocks = build(table=False)
+    rss_build = peak_rss()
+    t0 = time.perf_counter()
+    builder.save_index(idx, idx_dir)
+    rec = dict(clocks, build_seconds=sec,
+               save_seconds=time.perf_counter() - t0,
+               peak_rss_build_bytes=rss_build, peak_rss_bytes=peak_rss(),
+               num_bases=int(idx.seq_offsets[-1]),
+               num_kmers=int(idx.kmers.shape[0]),
+               num_occurrences=int(idx.occ_txp.shape[0]),
+               num_decoys=idx.num_targets - idx.first_decoy_index,
+               requires_shards=bool(idx.info.get("requires_shards")))
+    del idx
+    idx, sec, clocks = build(table=True)
+    assert idx.table is not None
+    builder.save_index(idx, idx_dir + "_table")
+    rec.update(table_build_seconds=sec,
+               table_seconds=clocks["index_table_seconds"])
+    with open(out_json, "w") as fh:
+        json.dump(rec, fh)
+    return 0
+
+
+def scale_decoy_phase(syn: str, sharded: tuple) -> None:
+    """`sharded2-decoy`: the scale set's transcripts with DECOY_CHROMS
+    random decoy chromosomes last, named in a decoys file as `index -d`
+    takes them, indexed by the port's partitioned build in a process of
+    its own (build_index_main: table-less, with the seconds of its
+    count, enumeration and CSR stages and its peak RSS; then with a
+    table, whose seconds it gives). The decoys come from seed 7 as the
+    set does, so they repeat stretches of the transcripts' sequence, as
+    a genome holds its transcripts' exons. The 200,000 pairs then run
+    single-rank with the sparse seed flow on the table-bearing index,
+    and with --indexShards 2 on 2 processes sharing the card (gloo) on
+    the table-less one: banded_dp at every batch on each rank, every
+    pair processed, Spearman at the JAX package's sparse gate and within
+    SHARDED_RHO_EQ of the sparse run's (the sharded seeding is the
+    sparse flow's). Its rate, decoy fragments, shard build and hit
+    all-gather are printed next to `sharded2`'s (`sharded`: its
+    Spearman, seconds and rank records)."""
+    r1, r2 = (os.path.join(syn, f"reads_{i}.fastq") for i in (1, 2))
+    n_batches = math.ceil(SCALE_PAIRS / BATCH)
+    truth = read_truth(r1)
+    fasta = os.path.join(syn, "txome_decoys.fasta")
+    names_path = os.path.join(syn, "decoys.txt")
+    with open(os.path.join(syn, "txome.fasta"), "rb") as src, \
+            open(fasta, "wb") as dst:
+        dst.write(src.read().rstrip(b"\n") + b"\n")
+    with open(names_path, "w") as fh:
+        fh.write("\n".join(write_decoys(fasta)) + "\n")
+    idx = os.path.join(syn, "idx_decoy")
+    rec_json = os.path.join(syn, "decoy_build.json")
+    # ru_maxrss keeps the peak of the process that forked across exec:
+    # a small launcher starts the build, so that its peak is its own
+    # (/proc/self/status has no VmHWM on the card's machine)
+    launcher = ("import subprocess, sys; "
+                "sys.exit(subprocess.call(sys.argv[1:]))")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", launcher, sys.executable,
+                           os.path.abspath(__file__), "--build-index",
+                           rec_json, fasta, names_path, idx],
+                          capture_output=True, text=True,
+                          timeout=RANK_TIMEOUT, cwd=REPO)
+    wall = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    with open(rec_json) as fh:
+        b = json.load(fh)
+    assert b["requires_shards"] and b["num_decoys"] == DECOY_CHROMS, b
+    phase("scale", f"sharded2-decoy index: {b['num_bases']} bases "
+          f"({DECOY_CHROMS} decoys of {DECOY_CHROM_MB} MiB), "
+          f"{DECOY_PART_BITS} partition bits, table-less, in a process of "
+          f"its own: count {b['index_count_seconds']!r} s, enumeration "
+          f"{b['index_enumerate_seconds']!r} s, CSR "
+          f"{b['index_csr_seconds']!r} s, build {b['build_seconds']!r} s, "
+          f"save {b['save_seconds']!r} s; peak RSS "
+          f"{b['peak_rss_build_bytes']} bytes after the build, "
+          f"{b['peak_rss_bytes']} after the save; {b['num_kmers']} keys, "
+          f"{b['num_occurrences']} records; with its table: build "
+          f"{b['table_build_seconds']!r} s, of it the table "
+          f"{b['table_seconds']!r} s; the process {wall!r} s")
+    out_sp = os.path.join(syn, "quant_sparse-decoy")
+    launches, sec_sp, _ = run_quant(["-i", idx + "_table", "-l", "A", "-1",
+                                     r1, "-2", r2, "-o", out_sp],
+                                    env=SPARSE_ENV)
+    assert launches == {MAIN_BW: n_batches}, launches
+    rho_sp = spearman(os.path.join(out_sp, "quant.sf"), truth)
+    name = "sharded2-decoy"
+    out = os.path.join(syn, f"quant_{name}")
+    (wall, recs), = run_jobs([(name, 2, "quant",
+                               ["-i", idx, "-l", "A", "-1", r1, "-2", r2,
+                                "--indexShards", "2", "-o", out])],
+                             os.path.dirname(syn), True).values()
+    check_ranks(name, recs, "gloo", launches=n_batches)
+    with open(os.path.join(out, "aux_info", "meta_info.json")) as fh:
+        meta = json.load(fh)
+    assert meta["num_processed"] == SCALE_PAIRS, meta["num_processed"]
+    rho = spearman(os.path.join(out, "quant.sf"), truth)
+    rho_sh, sec_sh, recs_sh = sharded
+    assert rho >= JAX_SPEARMAN_5K_SPARSE - 0.01, (rho, JAX_SPEARMAN_5K_SPARSE)
+    assert abs(rho - rho_sp) <= SHARDED_RHO_EQ, (rho, rho_sp)
+    sec = max(r["seconds"] for r in recs)
+    phase("scale", f"{name} (2 ranks over gloo): quant {sec!r} s = "
+          f"{SCALE_PAIRS / sec!r} frags/s (wall with the processes' start "
+          f"{wall!r} s); mapped {meta['percent_mapped']!r}%; "
+          f"num_decoy_fragments {meta['num_decoy_fragments']}; banded_dp "
+          f"launches by rank {[r['launches'] for r in recs]}; "
+          f"{collective_clocks(recs)}; NumReads Spearman vs truth {rho!r} "
+          f"(single-rank sparse on the decoy index in this call "
+          f"{rho_sp!r} at {SCALE_PAIRS / sec_sp!r} frags/s; sharded2 "
+          f"{rho_sh!r}, so the decoys move it by {rho - rho_sh!r}; gate "
+          f"{JAX_SPEARMAN_5K_SPARSE} - 0.01); sharded2 in this call: "
+          f"{SCALE_PAIRS / sec_sh!r} frags/s, {collective_clocks(recs_sh)}")
 
 
 def multi_main() -> None:
@@ -1918,6 +2174,8 @@ def multi_main() -> None:
 def main() -> int:
     if sys.argv[1:2] == ["--rank"]:
         return rank_main(sys.argv[2], sys.argv[3], sys.argv[4:])
+    if sys.argv[1:2] == ["--build-index"]:
+        return build_index_main(*sys.argv[2:6])
     smi = device_phase()
     sys.path.insert(0, REPO)
     import torch
@@ -1944,7 +2202,8 @@ def main() -> int:
                     side[d]] for d in (None, "cpu")))
         golden_multi_phase(idx, tmp, gene_map, seed_runs["sparse"][None])
         runs, syn, rho_sec = scale_phase(tmp)
-        scale_multi_phase(syn, rho_sec)
+        multi = scale_multi_phase(syn, rho_sec)
+        scale_decoy_phase(syn, multi["sharded2-gloo"])
         records[MAIN_BW]["launches"] = runs["paired"][MAIN_BW]
         records[RESCUE_BW]["launches"] = runs["recoverOrphans"][RESCUE_BW]
         if "--profile" in sys.argv[1:]:

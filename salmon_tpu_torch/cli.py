@@ -3,7 +3,9 @@
 Counterpart of salmon_tpu/cli.py (reference src/cli/Salmon.cpp:161-327
 and src/cli/ProgramOptionsGenerator.cpp). The flag surface is the JAX
 package's, so a command line switches by replacing the module name.
-The port runs `index`, `quant` in its three modes (mapping mode on
+The port runs `index` (partitioned by canonical top bits from 1.5 Gb of
+input, and table-less past 800 M keys, as the JAX package's), `quant`
+in its three modes (mapping mode on
 paired-end -1/-2 or single-end -r reads, with the dense or the sparse
 seed flow and the side outputs --writeMappings, --writeUnmappedNames,
 --writeOrphanLinks and --profileDir; alignment mode -a/-t and eq-class

@@ -18,6 +18,7 @@ import dataclasses
 import json
 import logging
 import os
+import time
 from typing import Optional
 
 import numpy as np
@@ -25,6 +26,7 @@ import numpy as np
 logger = logging.getLogger("salmon_tpu_torch")
 
 from salmon_tpu_torch.constants import DEFAULTS
+from salmon_tpu_torch.index import kmer_enum
 from salmon_tpu_torch.index.hashtable import (KmerHashTable, build_hash_table,
                                         SLOTS_PER_BUCKET as
                                         HT_SLOTS_PER_BUCKET)
@@ -133,7 +135,8 @@ def _counts_chunked(offsets: np.ndarray,
     return out
 
 
-PARTITIONED_BUILD_BASES = 1_500_000_000   # the JAX package partitions here
+PARTITIONED_BUILD_BASES = 1_500_000_000   # switch to the partitioned build
+TABLE_DIRECT_MAX_KEYS = 800_000_000       # past this, tables are per-shard
 
 
 def build_index(
@@ -144,6 +147,7 @@ def build_index(
     gencode: bool = False,
     keep_duplicates: bool = True,
     noclip_polya: bool = False,
+    partition_bits: Optional[int] = None,
     max_occs_kept: int = 0,
 ) -> TranscriptomeIndex:
     """Build the index from a transcript FASTA (+ optional decoy FASTA).
@@ -152,9 +156,12 @@ def build_index(
     `decoy_names_path` mimics `-d decoys.txt` with a combined FASTA: names
     listed there are treated as decoys (they must come last).
 
-    Flat numpy build only: inputs at genome-decoy scale (past
-    PARTITIONED_BUILD_BASES) need the partitioned build, which the port
-    does not have yet (ROADMAP queue 1 #18).
+    Genome-decoy scale (BASELINE config 5, 3 Gb+ of concatenated
+    input): the enumeration runs per canonical top-bits partition
+    (`partition_bits`, 6 from PARTITIONED_BUILD_BASES on, else 0) in
+    bounded chunks (index.kmer_enum), and past TABLE_DIRECT_MAX_KEYS no
+    monolithic hash table is built: such indexes are quantified with
+    --indexShards, which builds self-contained per-shard tables.
     """
     if k % 2 == 0 or k > 31 or k < 5:
         raise ValueError(f"k must be odd and in [5, 31], got {k}")
@@ -191,10 +198,21 @@ def build_index(
                  if records else np.zeros(0, dtype=np.uint8))
 
     # --- enumerate (canonical kmer, txp, pos, fwd), sorted by k-mer ------
-    if int(seq_offsets[-1]) >= PARTITIONED_BUILD_BASES:
-        raise NotImplementedError(
-            "genome-decoy scale inputs need the partitioned index build "
-            "(ROADMAP queue 1 #18)")
+    if partition_bits is None:
+        partition_bits = 6 if int(seq_offsets[-1]) >= \
+            PARTITIONED_BUILD_BASES else 0
+    if not 0 <= partition_bits <= 16:
+        raise ValueError(f"partition_bits must be in [0, 16], got "
+                         f"{partition_bits}")
+    if partition_bits:
+        complete_lengths_l = [r.complete_length for r in records]
+        # free the per-record sequence copies before the partitioned
+        # passes: seq_codes holds the concatenation
+        del records, valid, decoy
+        return _build_partitioned(names, complete_lengths_l, info, k,
+                                  first_decoy_index, seq_codes,
+                                  seq_offsets, partition_bits,
+                                  keep_duplicates, max_occs_kept)
     all_kmers, all_txp, all_pos, all_fwd = [], [], [], []
     for tid, rec in enumerate(records):
         kms, valid_mask = kmers_of(rec.seq_codes, k)
@@ -278,6 +296,120 @@ def build_index(
         table=table, seq_codes=seq_codes, seq_offsets=seq_offsets,
         info=info, occ_true_counts=true_counts,
         occ_counts=counts_kept)
+
+
+def _build_partitioned(names, complete_lengths_l, info, k,
+                       first_decoy_index, seq_codes,
+                       seq_offsets, partition_bits,
+                       keep_duplicates,
+                       max_occs_kept: int = 0) -> TranscriptomeIndex:
+    """Memory-bounded build: per canonical-top-bits partition, sort and
+    extract unique keys, writing into buffers at the exact record count
+    (index.kmer_enum's counting pass). Output is bit-identical to the
+    flat path; only peak memory differs (chunk and partition scratch
+    instead of whole-input buffers). Logs as clocks the seconds of the
+    count, the enumeration (the scatter pass), the CSR (the
+    per-partition keys, sorts and unique keys) and the table, if one is
+    built."""
+    lengths = np.diff(seq_offsets).astype(np.int32)
+    complete_lengths = np.array(complete_lengths_l, np.int32)
+    t0 = time.perf_counter()
+    part_counts = kmer_enum.count_partitions(seq_codes, seq_offsets, k,
+                                             partition_bits)
+    total = int(part_counts.sum())
+    t1 = time.perf_counter()
+    logger.info("partitioned index build: %d records over %d partitions",
+                total, 1 << partition_bits)
+    tx = np.empty(total, np.int32)
+    pf = np.empty(total, np.int32)
+    kmer_enum.scatter_partitions(seq_codes, seq_offsets, k, partition_bits,
+                                 part_counts, tx, pf)
+    t2 = time.perf_counter()
+    # unique-key buffers at the record-count upper bound; trimmed by view
+    # at the end
+    uniq_buf = np.empty(total, np.uint64)
+    off_buf = np.empty(total + 1, np.int64)
+    base = 0
+    nu = 0
+    for kmp, _, _ in kmer_enum.sorted_partitions(seq_codes, seq_offsets, k,
+                                                 part_counts, tx, pf):
+        n = kmp.shape[0]
+        if not n:
+            continue
+        up, sp = np.unique(kmp, return_index=True)
+        m = up.shape[0]
+        uniq_buf[nu:nu + m] = up
+        off_buf[nu:nu + m] = sp.astype(np.int64) + base
+        nu += m
+        base += n
+    off_buf[nu] = total
+    uniq = uniq_buf[:nu]
+    offsets = off_buf[:nu + 1]
+    clocks = {"index_count_seconds": t1 - t0,
+              "index_enumerate_seconds": t2 - t1,
+              "index_csr_seconds": time.perf_counter() - t2}
+
+    true_counts = None
+    if max_occs_kept:
+        from salmon_tpu_torch.index.diskfmt import prune_occurrences
+        offsets, (tx, pf), tc = prune_occurrences(
+            offsets, (tx, pf), max_occs_kept)
+        if int(tc.max(initial=0)) > max_occs_kept:
+            true_counts = tc
+        logger.info("pruned occurrence CSR to <= %d records/key: "
+                    "%d -> %d records", max_occs_kept, total,
+                    int(offsets[-1]))
+
+    counts_kept = _counts_chunked(offsets)
+    if nu <= TABLE_DIRECT_MAX_KEYS:
+        # oct-align only when a monolithic table exists: the dense
+        # expand is the only consumer of alignment, and table-less
+        # (--indexShards-only) indexes would pay the pad plane on disk
+        # for nothing
+        from salmon_tpu_torch.index.diskfmt import oct_align_csr
+        offsets, (tx, pf) = oct_align_csr(
+            offsets, (tx, pf), (np.int32(-1), np.int32(0)))
+        info["occ_oct_aligned"] = True
+        t3 = time.perf_counter()
+        table = build_hash_table(
+            uniq, occ_offsets=offsets, counts=counts_kept,
+            filter_counts=true_counts, inline_records=(tx, pf))
+        clocks["index_table_seconds"] = time.perf_counter() - t3
+        info["table_inline_singles"] = True
+        if table.n_shadowed:
+            from salmon_tpu_torch.index.hashtable import appendix_plan
+            is_sep, gi, sep_fp = appendix_plan(table)
+            tx = np.concatenate([tx, np.where(is_sep, -1, tx[gi])
+                                 .astype(np.int32)])
+            pf = np.concatenate([pf, np.where(is_sep, sep_fp << 1,
+                                              pf[gi]).astype(np.int32)])
+    else:
+        table = None
+        info["requires_shards"] = True
+        logger.info("index has %d keys: skipping the monolithic table "
+                    "(quantify with --indexShards; per-shard tables are "
+                    "built at load)", nu)
+    logger.info("partitioned build clocks: %s", clocks,
+                extra={"clocks": clocks})
+
+    info.update({
+        "index_format_version": INDEX_FORMAT_VERSION,
+        "k": k,
+        "num_targets": len(names),
+        "num_decoys": len(names) - first_decoy_index,
+        "num_kmers": int(nu),
+        "num_occurrences": int(tx.shape[0]),  # incl. shadow-merge appendix
+        "keep_duplicates": keep_duplicates,
+        "max_occs_kept": int(max_occs_kept),
+    })
+    return TranscriptomeIndex(
+        k=k, names=names, lengths=lengths,
+        complete_lengths=complete_lengths,
+        first_decoy_index=first_decoy_index,
+        kmers=uniq, occ_offsets=offsets, occ_txp=tx, occ_pf=pf,
+        table=table, seq_codes=seq_codes,
+        seq_offsets=seq_offsets, info=info,
+        occ_true_counts=true_counts, occ_counts=counts_kept)
 
 
 def save_index(idx: TranscriptomeIndex, out_dir: str) -> None:

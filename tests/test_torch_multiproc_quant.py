@@ -7,7 +7,9 @@ sample pairs (10,000):
   port's single-rank sparse run (the sharded seeding equals the sparse
   flow's; with one reads group the steps are the single run's);
 - the same on a table-less copy of the index: equal to the
-  table-bearing sharded run, where one rank alone raises;
+  table-bearing sharded run, where one rank alone raises; and on the
+  table-less index of the port's own partitioned build: equal to the
+  copy's run, and raising alone too;
 - `python -m salmon_tpu_torch.parallel.launch`: data-parallel
   --seqBias --gcBias on 2 ranks, from 3 unequal input files (each rank
   streams its own, the ends agreed by the has-data vote), against the
@@ -35,6 +37,7 @@ from test_torch_quant import assert_quant_sf_close
 from salmon_tpu import cli as jcli
 from salmon_tpu_torch import cli
 from salmon_tpu_torch import quant as tquant
+from salmon_tpu_torch.index import builder as tbuilder
 from salmon_tpu_torch.index.builder import load_index, save_index
 from salmon_tpu_torch.io import fastq as tfastq
 from salmon_tpu_torch.io.writers import read_quant_sf
@@ -57,28 +60,33 @@ def _cli_worker(world, runs):
 
 @pytest.fixture(scope="module")
 def indexes(tmp_path_factory):
-    """(index, table-less copy of it), both saved by the port, k 31."""
+    """(index, table-less copy of it, table-less index of the port's
+    partitioned build), all saved by the port, k 31."""
     base = tmp_path_factory.mktemp("idx")
-    idx, tl = str(base / "idx"), str(base / "tl")
-    assert cli.main(["index", "-t", os.path.join(DATA, "transcripts.fasta"),
-                     "-i", idx, "-k", "31"]) == 0
+    idx, tl, ptl = (str(base / n) for n in ("idx", "tl", "ptl"))
+    fasta = os.path.join(DATA, "transcripts.fasta")
+    assert cli.main(["index", "-t", fasta, "-i", idx, "-k", "31"]) == 0
     save_index(dataclasses.replace(load_index(idx), table=None), tl)
     assert load_index(tl).table is None
-    return idx, tl
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tbuilder, "TABLE_DIRECT_MAX_KEYS", 0)
+        save_index(tbuilder.build_index(fasta, k=31, partition_bits=2), ptl)
+    assert load_index(ptl).info["requires_shards"]
+    return idx, tl, ptl
 
 
 @pytest.fixture(scope="module")
 def runs(indexes, tmp_path_factory):
     """Output directories: 2-rank runs (sharded, sharded table-less) and
     the single-rank references."""
-    idx, tl = indexes
+    idx, tl, ptl = indexes
     base = tmp_path_factory.mktemp("runs")
-    out = {n: str(base / n) for n in ("sh2", "sh2_tl", "sparse", "bias")}
+    out = {n: str(base / n) for n in ("sh2", "sh2_tl", "sh2_ptl", "sparse",
+                                      "bias")}
     run_ranks(_cli_worker, 2, [
-        ["-i", idx, "-l", "IU", *READS, "--indexShards", "2", "--dumpEq",
-         "-o", out["sh2"]],
-        ["-i", tl, "-l", "IU", *READS, "--indexShards", "2", "--dumpEq",
-         "-o", out["sh2_tl"]]])
+        ["-i", i, "-l", "IU", *READS, "--indexShards", "2", "--dumpEq",
+         "-o", out[name]]
+        for name, i in (("sh2", idx), ("sh2_tl", tl), ("sh2_ptl", ptl))])
     mp = pytest.MonkeyPatch()
     mp.setenv("SALMON_TPU_SPARSE_SEED", "1")
     try:
@@ -137,6 +145,18 @@ def test_tableless_index(indexes, runs, tmp_path):
     assert _eq_lines(runs["sh2_tl"]) == _eq_lines(runs["sh2"])
     assert _lines(os.path.join(runs["sh2_tl"], "quant.sf")) == \
         _lines(os.path.join(runs["sh2"], "quant.sf"))
+
+
+def test_partitioned_tableless_index(indexes, runs, tmp_path):
+    """The port's own partitioned table-less index (unaligned CSR, no
+    pad plane) raises JAX's ValueError without shards, and under
+    --indexShards 2 quantifies exactly as the table-less copy."""
+    with pytest.raises(ValueError, match="--indexShards"):
+        _quant(["-i", indexes[2], "-l", "IU", *READS, "-o",
+                str(tmp_path / "q")])
+    assert _eq_lines(runs["sh2_ptl"]) == _eq_lines(runs["sh2_tl"])
+    assert _lines(os.path.join(runs["sh2_ptl"], "quant.sf")) == \
+        _lines(os.path.join(runs["sh2_tl"], "quant.sf"))
 
 
 def test_index_shards_need_as_many_processes(indexes, tmp_path):

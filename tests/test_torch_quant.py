@@ -109,67 +109,114 @@ def test_cli_quant_on_jax_built_index(tmp_path):
     assert_golden(out)
 
 
-def test_port_runs_without_jax(tmp_path):
-    """With jax unimportable, the port imports and runs index + quant,
-    paired, single-end, with the rescue, with bias correction and
-    Gibbs draws, with bootstraps, with the sparse seed flow and the side
-    outputs, in alignment mode (-a) and in eq-class mode (-e), and
-    quantmerge."""
-    script = f"""
-import sys
-sys.modules["jax"] = None
-sys.modules["salmon_tpu"] = None
-sys.path.insert(0, {REPO!r})
-from salmon_tpu_torch import cli
-idx, out = {str(tmp_path / 'idx')!r}, {str(tmp_path / 'quant')!r}
-FASTA = {os.path.join(DATA, 'transcripts.fasta')!r}
-assert cli.main(["index", "-t", {os.path.join(DATA, 'transcripts.fasta')!r},
-                 "-i", idx, "-k", "31"]) == 0
-assert cli.main(["quant", "-i", idx, "-l", "A", *{READS!r}, "-o", out,
+# test_port_runs_without_jax: one case a command or a short group of
+# commands, each in a subprocess of its own with jax and salmon_tpu
+# unimportable and two threads (torch's threads oversubscribe next to
+# other test workers), under a limit sized to its work. IDX is the
+# module's port-built index, OUT the case's output prefix.
+NO_JAX_CASES = {
+    "index-paired": (150, """
+idx = OUT + "_idx"
+assert cli.main(["index", "-t", FASTA, "-i", idx, "-k", "31"]) == 0
+assert cli.main(["quant", "-i", idx, "-l", "A", *READS, "-o", OUT,
                  "-q"], device="cpu") == 0
-assert cli.main(["quant", "-i", idx, "-l", "A", "-r", {READS[1]!r}, "-o",
-                 out + "_se", "-q"], device="cpu") == 0
-assert cli.main(["quant", "-i", idx, "-l", "IU", *{READS!r},
-                 "--recoverOrphans", "-o", out + "_rescue", "-q"],
-                device="cpu") == 0
-assert cli.main(["quant", "-i", idx, "-l", "IU", *{READS!r}, "--seqBias",
+"""),
+    "single-end": (120, """
+assert cli.main(["quant", "-i", IDX, "-l", "A", "-r", READS[1], "-o", OUT,
+                 "-q"], device="cpu") == 0
+"""),
+    "rescue": (150, """
+assert cli.main(["quant", "-i", IDX, "-l", "IU", *READS,
+                 "--recoverOrphans", "-o", OUT, "-q"], device="cpu") == 0
+"""),
+    "bias-gibbs": (240, """
+assert cli.main(["quant", "-i", IDX, "-l", "IU", *READS, "--seqBias",
                  "--gcBias", "--posBias", "--numGibbsSamples", "2",
-                 "--thinningFactor", "2", "-o", out + "_bias", "-q"],
+                 "--thinningFactor", "2", "-o", OUT, "-q"],
                 device="cpu") == 0
-assert cli.main(["quant", "-i", idx, "-l", "IU", *{READS!r},
-                 "--numBootstraps", "2", "-o", out + "_boot", "-q"],
+"""),
+    "bootstraps": (150, """
+assert cli.main(["quant", "-i", IDX, "-l", "IU", *READS,
+                 "--numBootstraps", "2", "-o", OUT, "-q"],
                 device="cpu") == 0
-import os
+"""),
+    "sparse-side-outputs-quantmerge": (180, """
 os.environ["SALMON_TPU_SPARSE_SEED"] = "1"
-assert cli.main(["quant", "-i", idx, "-l", "IU", *{READS!r},
-                 "--writeMappings", out + ".sam", "--writeUnmappedNames",
-                 "--writeOrphanLinks", "-o", out + "_sparse", "-q"],
-                device="cpu") == 0
+assert cli.main(["quant", "-i", IDX, "-l", "IU", *READS,
+                 "--writeMappings", OUT + ".sam", "--writeUnmappedNames",
+                 "--writeOrphanLinks", "-o", OUT, "-q"], device="cpu") == 0
 del os.environ["SALMON_TPU_SPARSE_SEED"]
-assert cli.main(["quantmerge", "--quants", out, out + "_sparse", "-o",
-                 out + "_merged.tsv"]) == 0
+assert cli.main(["quantmerge", "--quants", OUT, OUT, "--names", "a", "b",
+                 "-o", OUT + "_merged.tsv"]) == 0
+"""),
+    "alignment-eq": (90, """
 from salmon_tpu_torch.alignment.bamio import write_bam
 from salmon_tpu_torch.io.fasta import load_transcripts
 recs, _ = load_transcripts(FASTA, noclip_polya=True)
 codes = recs[0].seq_codes
-bam = out + "_aln.bam"
+bam = OUT + "_aln.bam"
 write_bam(bam, [r.name for r in recs], [len(r.seq_codes) for r in recs],
-          [dict(name=f"r{{i}}", refid=0, pos=i, flag=0, cigar="50M",
+          [dict(name=f"r{i}", refid=0, pos=i, flag=0, cigar="50M",
                 seq="".join("ACGTN"[c] for c in codes[i:i + 50]),
-                tags={{"AS": 100}}) for i in range(200)])
+                tags={"AS": 100}) for i in range(200)])
 assert cli.main(["quant", "-t", FASTA, "-l", "A", "-a", bam, "--dumpEq",
-                 "-o", out + "_aln", "-q"], device="cpu") == 0
-assert cli.main(["quant", "-e", out + "_aln", "-o", out + "_eq", "-q"],
+                 "-o", OUT + "_aln", "-q"], device="cpu") == 0
+assert cli.main(["quant", "-e", OUT + "_aln", "-o", OUT, "-q"],
                 device="cpu") == 0
+"""),
+    "partitioned-tableless": (90, """
+import numpy as np
+from salmon_tpu_torch.index import builder
+builder.TABLE_DIRECT_MAX_KEYS = 0
+idx = builder.build_index(FASTA, k=31, partition_bits=2)
+assert idx.table is None and idx.info["requires_shards"]
+builder.save_index(idx, OUT + "_idx")
+back = builder.load_index(OUT + "_idx")
+for f in ("kmers", "occ_offsets", "occ_txp", "occ_pf", "occ_counts"):
+    np.testing.assert_array_equal(getattr(back, f), getattr(idx, f))
+try:
+    cli.main(["quant", "-i", OUT + "_idx", "-l", "IU", *READS, "-o", OUT,
+              "-q"], device="cpu")
+    raise AssertionError("a table-less index quantified without shards")
+except ValueError as e:
+    assert "--indexShards" in str(e), e
+"""),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NO_JAX_CASES))
+def test_port_runs_without_jax(port_index, tmp_path, case):
+    """With jax and salmon_tpu unimportable, the port imports and runs
+    one command or short group: index + paired quant, single-end, the
+    rescue, bias correction with Gibbs draws, bootstraps, the sparse
+    seed flow with the side outputs and quantmerge, alignment mode (-a)
+    with eq-class mode (-e), and the partitioned table-less build with
+    its save/load round trip (which quant refuses without shards)."""
+    limit, body = NO_JAX_CASES[case]
+    out = str(tmp_path / "quant")
+    script = f"""
+import os
+import sys
+sys.modules["jax"] = None
+sys.modules["salmon_tpu"] = None
+sys.path.insert(0, {REPO!r})
+import torch
+torch.set_num_threads(2)
+from salmon_tpu_torch import cli
+IDX, OUT = {port_index!r}, {out!r}
+FASTA = {os.path.join(DATA, 'transcripts.fasta')!r}
+READS = {READS!r}
+{body}
 assert not any(m == "jax" or m.startswith(("jax.", "salmon_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 """
-    env = dict(os.environ, PYTHONPATH="")
+    env = dict(os.environ, PYTHONPATH="", OMP_NUM_THREADS="2")
     proc = subprocess.run([sys.executable, "-c", script], env=env,
-                          capture_output=True, text=True, timeout=600)
+                          capture_output=True, text=True, timeout=limit)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    with open(tmp_path / "quant" / "lib_format_counts.json") as fh:
-        assert json.load(fh)["expected_format"] == "IU"
+    if case == "index-paired":
+        with open(tmp_path / "quant" / "lib_format_counts.json") as fh:
+            assert json.load(fh)["expected_format"] == "IU"
 
 
 def test_no_jax_imports_in_the_port():
@@ -183,7 +230,7 @@ def test_no_jax_imports_in_the_port():
     # the multi-process modules included
     for mod in ("parallel/distributed.py", "parallel/quant_step.py",
                 "parallel/sharded.py", "parallel/em.py", "parallel/launch.py",
-                "index/shard.py"):
+                "index/shard.py", "index/kmer_enum.py"):
         assert os.path.join(REPO, "salmon_tpu_torch", mod) in files, mod
     # nor does it load the JAX package's native library or read the JAX
     # driver's device switches
