@@ -5,12 +5,22 @@
 
 Phases, one line each; any failure raises and exits non-zero:
   1. device  — a CUDA device is visible; nvidia-smi name and power limit
-  2. build   — nvcc builds every kernel source of the path, in parallel
+  2. build   — nvcc builds every kernel source of the path, in parallel,
+               and g++ the host library (salmon_tpu_torch/_native.py)
+               beside them: its seconds and the g++ version
   3. kernels — each kernel against its plain torch version on the card,
                in every mode: banded_dp at the main DP's band (15) and
                shapes, at the rescue's band (80) and shapes, and at
                bands 40 and 7; the kernel's time (launches through its
                C entry), the plain version's time and the bound for each
+     host    — each function of the host library against its plain
+               version on this machine's host at phase 5's sizes (the
+               scale set is made here): the BAM reader over the scale
+               BAM, bam_pad_batch and aln_group_eq on its first batch,
+               the FASTQ reader on the 200,000 pairs plain and gzipped,
+               the flat and partitioned enumerations, table_place,
+               oct_align_pads and gather_rows on the set's k-mers; both
+               times of each
   4. golden  — `index` + `quant -l IU` of tests/data through the CLI,
                held to tests/data/golden like tests/test_golden.py; then
                single-end `quant -l A -r reads_1.fastq` on the card, held
@@ -84,9 +94,10 @@ launch counts; the decoy index is built by this script too
 (--build-index, build_index_main).
 Every mode runs through the CLI with the launch counts set to 0 just
 before it and read just after. The kernels JSON line (one record per
-band the main paths run: 15, and 80 for the rescue) and the card's name
-and power limit come before the last line, which is {"ok": true,
-"device": {...}}. Imports nothing of JAX or salmon_tpu. --profile adds
+band the main paths run: 15, and 80 for the rescue), the host_native
+JSON line (one record per host function: its seconds, the plain
+version's and the problem size) and the card's name and power limit
+come before the last line, which is {"ok": true, "device": {...}}. Imports nothing of JAX or salmon_tpu. --profile adds
 a phase 6: where the time of the paired scale quant goes, by
 quantify's own clocks and a torch.profiler breakdown of a few batches,
 dense and sparse seed flow in turns, the clocks and device busy time of
@@ -202,14 +213,27 @@ def device_phase():
 
 
 def build_phase():
-    from salmon_tpu_torch import _cuda
+    """nvcc on every kernel source and, at the same time in a thread, g++
+    on the host library's four sources."""
+    import concurrent.futures
+    from salmon_tpu_torch import _cuda, _native
     names = ["banded_dp"]
     t0 = time.perf_counter()
-    built = _cuda.build(names)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host = pool.submit(_native.build)
+        built = _cuda.build(names)
+        host_built = host.result()
     for name, (sec, log) in built.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         phase("build", f"{name}: {sec:.1f} s; {' | '.join(regs)}")
-    phase("build", f"all kernels ready in {time.perf_counter() - t0:.1f} s")
+    cxx = subprocess.run([_native._cxx(), "--version"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    took = ("built before this run" if host_built is None
+            else f"{host_built[0]!r} s")
+    phase("build", f"host library ({', '.join(_native.SOURCES)}): {took} "
+          f"with {cxx.splitlines()[0]}")
+    phase("build", f"all kernels and the host library ready in "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -549,6 +573,190 @@ def write_alignment_bam(syn: str, path: str) -> dict:
     stats["fragments"] = len(rnames)
     stats["families"] = int(sum(len(m) > 1 for m in members.values()))
     return dict(stats)
+
+
+# the BamBatch fields the host check compares (every one)
+BAM_FIELDS = ("refid", "pos", "flag", "mapq", "mate_refid", "mate_pos",
+              "tlen", "read_len", "seq_off", "cigar_off", "cigar_n",
+              "as_tag", "nm_tag", "zw_tag", "name_hash", "seq_buf",
+              "cigar_op", "cigar_oplen")
+
+
+def _equal(got, want, what: str) -> None:
+    """Arrays, or tuples and lists of them (nested), equal element for
+    element (NaN equal to NaN); raises naming `what`."""
+    import numpy as np
+    if isinstance(got, (tuple, list)):
+        if len(got) != len(want):
+            raise AssertionError(f"{what}: {len(got)} parts, plain "
+                                 f"{len(want)}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _equal(g, w, f"{what}[{i}]")
+        return
+    g, w = np.asarray(got), np.asarray(want)
+    if g.shape != w.shape or not np.array_equal(
+            g, w, equal_nan=g.dtype.kind == "f"):
+        raise AssertionError(f"{what}: differs from its plain version")
+
+
+def host_native_phase(syn: str) -> tuple:
+    """Each function of the port's native host library against its plain
+    version on this machine's host, at phase 5's sizes: the BAM reader
+    over the whole scale BAM (written here), bam_pad_batch and
+    aln_group_eq on its first batch, the FASTQ reader on the 200,000
+    pairs plain and gzipped, the flat and 6-bit partitioned enumerations
+    of the set's transcripts, table_place and oct_align_pads on its keys,
+    gather_rows of one of 2 shards' records. Returns (one record per
+    function for the host_native line, the BAM's (stats, seconds))."""
+    import gzip
+    import shutil
+
+    import numpy as np
+    from salmon_tpu_torch.alignment import alnweights, bamio
+    from salmon_tpu_torch.alignment import errormodel_device as emd
+    from salmon_tpu_torch.alignment import quant as aq
+    from salmon_tpu_torch.constants import DEFAULTS
+    from salmon_tpu_torch.index import (builder, hashtable, kmer_enum,
+                                        native_kmers)
+    from salmon_tpu_torch.index.diskfmt import _oct_align_pads_py
+    from salmon_tpu_torch.io import fastq
+    from salmon_tpu_torch.io.fasta import load_transcripts
+    from salmon_tpu_torch.models.fld import FragmentLengthDistribution
+
+    records = []
+
+    def check(name, size, native, plain, same=None):
+        t0 = time.perf_counter()
+        got = native()
+        sec = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = plain()
+        plain_sec = time.perf_counter() - t0
+        (same or _equal)(got, want, name)
+        records.append({"name": name, "seconds": sec,
+                        "plain_seconds": plain_sec, "size": size})
+        phase("host", f"{name} ({size}): equal to its plain version; "
+              f"native {sec!r} s, plain {plain_sec!r} s "
+              f"({plain_sec / max(sec, 1e-9)!r}x)")
+        return got
+
+    bam = os.path.join(syn, "aln.bam")
+    t0 = time.perf_counter()
+    stats = write_alignment_bam(syn, bam)
+    t_bam = time.perf_counter() - t0
+
+    def read(reader, *args):
+        out = list(reader.batches(*args))
+        reader.close()
+        return out
+
+    def same_batches(got, want, what):
+        _equal([g.n for g in got], [w.n for w in want], what)
+        for f in BAM_FIELDS:
+            _equal([getattr(g, f) for g in got],
+                   [getattr(w, f) for w in want], f"{what} {f}")
+
+    batches = check("bam_next_batch", f"{stats['records']} records",
+                    lambda: read(bamio.BamReader(bam)),
+                    lambda: read(bamio._PyBam(bam), 1 << 16), same_batches)
+    b = batches[0]
+    sel = np.nonzero((b.flag & bamio.FLAG_UNMAPPED) == 0)[0]
+    rl = -(-int(b.read_len.max()) // 64) * 64
+    check("bam_pad_batch", f"{sel.size} records, grid {rl} wide",
+          lambda: emd.pad_records(b, sel, rl),
+          lambda: emd.pad_records_numpy(b, sel, rl))
+
+    # the -a mode's weights before the error model is ready: AS and
+    # the prior FLD (alignment/quant.py)
+    (fid, keep, refid, flen, obs, score, *_) = aq._group_fragments(b, True)
+    keep &= refid >= 0
+    o = DEFAULTS
+    log_pmf = FragmentLengthDistribution(
+        max_val=o.max_frag_length, prior_mu=o.frag_len_prior_mean,
+        prior_sigma=o.frag_len_prior_sd).log_pmf()
+    logw = (score[keep].astype(np.float64)
+            + log_pmf[np.clip(flen[keep], 0, o.max_frag_length)])
+    args = (fid[keep], refid[keep], flen[keep], obs[keep], logw)
+
+    def weigh_plain():
+        eq_txp, eq_w, w, valid, starts, counts, wn, hist = \
+            aq._weigh_fragments(*args, o, True)
+        return (eq_txp, eq_w, wn, aq._best_alignments(w, valid, starts,
+                                                      counts), hist)
+
+    def same_weights(got, want, what):
+        eq_txp, eq_w, wn, best, hist, _ = got
+        _equal((eq_txp, best[best >= 0]), (want[0], want[3]), what)
+        for name, g, w, rtol in (("eq_w", eq_w, want[1], 1e-5),
+                                 ("wn", wn, want[2], 1e-12),
+                                 ("fld_hist", hist, want[4], 1e-12)):
+            if not np.allclose(g, w, rtol=rtol, atol=1e-12):
+                raise AssertionError(f"{what} {name}: beyond rtol {rtol}")
+
+    check("aln_group_eq", f"{args[0].size} alignments of "
+          f"{np.unique(args[0]).size} fragments",
+          lambda: alnweights.group_eq(*args, o.min_aln_prob, True,
+                                      o.max_frag_length),
+          weigh_plain, same_weights)
+
+    reads = [os.path.join(syn, f"reads_{i}.fastq") for i in (1, 2)]
+    for r in reads:
+        with open(r, "rb") as src, gzip.open(r + ".gz", "wb", 1) as dst:
+            shutil.copyfileobj(src, dst)
+
+    def same_chunks(got, want, what):
+        _equal([(c.left.codes, c.left.lengths, c.right.codes,
+                 c.right.lengths, c.n_valid) for c in got],
+               [(c.left.codes, c.left.lengths, c.right.codes,
+                 c.right.lengths, c.n_valid) for c in want], what)
+
+    for tag, (r1, r2) in (("plain", reads),
+                          ("gzipped", [r + ".gz" for r in reads])):
+        check(f"fastq_next_batch {tag}", f"{SCALE_PAIRS} pairs",
+              lambda: list(fastq.iter_paired_chunks([r1], [r2], BATCH,
+                                                    256)),
+              lambda: list(fastq._iter_paired_chunks_py([r1], [r2], BATCH,
+                                                        256)),
+              same_chunks)
+
+    txps, _ = load_transcripts(os.path.join(syn, "txome.fasta"))
+    seq = np.concatenate([t.seq_codes for t in txps])
+    off = np.concatenate([[0], np.cumsum([t.seq_codes.size
+                                          for t in txps])]).astype(np.int64)
+    km, tx, po, fw = check(
+        "kmer_enumerate", f"{seq.size} bases, k 31",
+        lambda: native_kmers.enumerate_sorted(seq, off, 31),
+        lambda: builder._enumerate_sorted_records(seq, off, 31))
+    check("kmer_enumerate_part", f"{seq.size} bases, k 31, "
+          f"{DECOY_PART_BITS} bits",
+          lambda: list(native_kmers.enumerate_sorted_partitioned(
+              seq, off, 31, DECOY_PART_BITS)),
+          lambda: list(kmer_enum.enumerate_sorted_partitioned(
+              seq, off, 31, DECOY_PART_BITS)))
+
+    keys, counts = np.unique(km, return_counts=True)
+    n_buckets = hashtable.table_n_slots(keys.size) // 4
+
+    def place_plain():
+        hi, lo = hashtable.split_u64(keys)
+        mask = np.uint32(n_buckets - 1)
+        return hashtable._place_keys_numpy(
+            (hashtable.mix32(hi, lo) & mask).astype(np.int64),
+            (hashtable.mix32b(hi, lo) & mask).astype(np.int64), counts,
+            n_buckets)
+
+    check("table_place", f"{keys.size} keys, {n_buckets} buckets",
+          lambda: native_kmers.table_place(keys, counts, n_buckets),
+          place_plain)
+    check("oct_align_pads", f"{keys.size} keys",
+          lambda: native_kmers.oct_align_pads(counts, 8),
+          lambda: _oct_align_pads_py(counts, 8))
+    # one of 2 shards' occurrence records, 8 bytes each
+    occ = np.stack([tx, (po << 1) | fw], axis=1)
+    gidx = np.nonzero(np.repeat(np.arange(keys.size) % 2 == 0, counts))[0]
+    check("gather_rows", f"{gidx.size} of {occ.shape[0]} 8-byte records",
+          lambda: native_kmers.gather_rows(occ, gidx), lambda: occ[gidx])
+    return records, (stats, t_bam)
 
 
 def _parse_sf(lines):
@@ -1184,12 +1392,9 @@ def changed_eff_share(plain: str, corrected: str) -> float:
     return float(np.mean(moved))
 
 
-def scale_phase(tmp: str, only=None) -> tuple:
-    """The modes of the 5k / 200k set (those named in `only`, default
-    all). Returns ({mode: launches by band}, the set's directory,
-    {mode: (Spearman, quant seconds)})."""
-    from salmon_tpu_torch import cli
-
+def make_scale_set(tmp: str) -> str:
+    """scripts/make_synthetic_txome.py's SCALE_TXPS transcripts and
+    SCALE_PAIRS pairs (seed 7) in tmp/syn; returns that directory."""
     syn = os.path.join(tmp, "syn")
     t0 = time.perf_counter()
     subprocess.run([sys.executable,
@@ -1197,19 +1402,28 @@ def scale_phase(tmp: str, only=None) -> tuple:
                     "--out-dir", syn, "--n-txps", str(SCALE_TXPS),
                     "--n-pairs", str(SCALE_PAIRS)], check=True,
                    capture_output=True, timeout=600)
-    t_gen = time.perf_counter() - t0
+    phase("scale", f"{SCALE_TXPS} txps / {SCALE_PAIRS} pairs: data "
+          f"{time.perf_counter() - t0:.1f} s")
+    return syn
+
+
+def scale_phase(syn: str, only=None, bam=None) -> tuple:
+    """The modes of the 5k / 200k set in syn (those named in `only`,
+    default all); `bam`, (stats, seconds) of write_alignment_bam's BAM
+    when it is written already. Returns ({mode: launches by band}, {mode:
+    (Spearman, quant seconds)})."""
+    from salmon_tpu_torch import cli
+
     idx = os.path.join(syn, "idx")
     t0 = time.perf_counter()
     assert cli.main(["index", "-t", os.path.join(syn, "txome.fasta"),
                      "-i", idx, "-k", "31"]) == 0
-    t_index = time.perf_counter() - t0
-    phase("scale", f"{SCALE_TXPS} txps / {SCALE_PAIRS} pairs: data "
-          f"{t_gen:.1f} s, index {t_index:.1f} s")
+    phase("scale", f"index {time.perf_counter() - t0:.1f} s")
     r1, r2 = (os.path.join(syn, f"reads_{i}.fastq") for i in (1, 2))
     truth = read_truth(r1)
     n_batches = math.ceil(SCALE_PAIRS / BATCH)
     pairs = ["-i", idx, "-1", r1, "-2", r2]
-    bam = os.path.join(syn, "aln.bam")
+    bam_path = os.path.join(syn, "aln.bam")
     sam = os.path.join(syn, "mappings.sam")
     # the draws and the side outputs leave quant.sf as the paired run
     # writes it, so those modes keep the paired gate; -a and -e launch no
@@ -1227,7 +1441,8 @@ def scale_phase(tmp: str, only=None) -> tuple:
          JAX_SPEARMAN_5K, {MAIN_BW: n_batches}, None),
         ("gibbs", [*pairs, "--numGibbsSamples", str(SCALE_GIBBS),
                    "--dumpEq"], JAX_SPEARMAN_5K, {MAIN_BW: n_batches}, None),
-        ("alignment", ["-t", os.path.join(syn, "txome.fasta"), "-a", bam],
+        ("alignment", ["-t", os.path.join(syn, "txome.fasta"), "-a",
+                       bam_path],
          JAX_SPEARMAN_5K_ALIGNMENT, {}, None),
         ("eqclass", ["-e", os.path.join(syn, "quant_gibbs")],
          JAX_SPEARMAN_5K_EQCLASS, {}, None),
@@ -1242,9 +1457,11 @@ def scale_phase(tmp: str, only=None) -> tuple:
             continue
         extra = ""
         if mode == "alignment":
-            t0 = time.perf_counter()
-            stats = write_alignment_bam(syn, bam)
-            t_bam = time.perf_counter() - t0
+            if bam is None:
+                t0 = time.perf_counter()
+                bam = write_alignment_bam(syn, bam_path), \
+                    time.perf_counter() - t0
+            stats, t_bam = bam
         out = os.path.join(syn, f"quant_{mode}")
         launches, sec, clocks = run_quant(["-l", "A", *argv, "-o", out],
                                           env=env)
@@ -1331,7 +1548,7 @@ def scale_phase(tmp: str, only=None) -> tuple:
               f"{jax_rho}){extra}")
         runs[mode] = launches
         rho_sec[mode] = (rho, sec)
-    return runs, syn, rho_sec
+    return runs, rho_sec
 
 
 def sam_fragments(path: str) -> tuple:
@@ -2167,7 +2384,8 @@ def multi_main() -> None:
                    os.path.join(DATA, "reads_2.fastq"), "-g", gene_map,
                    "--dumpEq", "-o", sparse], env=SPARSE_ENV)
         golden_multi_phase(idx, tmp, gene_map, sparse)
-        _, syn, rho_sec = scale_phase(tmp, only=("paired", "sparse"))
+        syn = make_scale_set(tmp)
+        _, rho_sec = scale_phase(syn, only=("paired", "sparse"))
         scale_multi_phase(syn, rho_sec)
 
 
@@ -2189,6 +2407,8 @@ def main() -> int:
         return 0
     records = kernel_phase()
     with tempfile.TemporaryDirectory() as tmp:
+        syn = make_scale_set(tmp)
+        host, bam = host_native_phase(syn)
         idx = golden_phase(tmp)
         golden_single_phase(idx, tmp)
         golden_rescue_phase(idx, tmp)
@@ -2201,7 +2421,7 @@ def main() -> int:
             tmp, *([seed_runs["sparse"][d], seed_runs["rowpool-64"][d],
                     side[d]] for d in (None, "cpu")))
         golden_multi_phase(idx, tmp, gene_map, seed_runs["sparse"][None])
-        runs, syn, rho_sec = scale_phase(tmp)
+        runs, rho_sec = scale_phase(syn, bam=bam)
         multi = scale_multi_phase(syn, rho_sec)
         scale_decoy_phase(syn, multi["sharded2-gloo"])
         records[MAIN_BW]["launches"] = runs["paired"][MAIN_BW]
@@ -2213,6 +2433,7 @@ def main() -> int:
              "library_ms"]
     print(json.dumps({"kernels": [{k: rec[k] for k in order}
                                   for rec in records.values()]}))
+    print(json.dumps({"host_native": host}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,16 @@
-"""BAM input and output on the host, in pure Python and numpy.
+"""BAM input and output on the host.
 
-Counterpart of salmon_tpu/alignment/bamio.py without its native reader
-(reference analog: htslib + the BAMQueue producer thread,
-include/salmon/internal/alignment/BAMQueue.hpp/.tpp). Records are
+Counterpart of salmon_tpu/alignment/bamio.py (reference analog: htslib
++ the BAMQueue producer thread,
+include/salmon/internal/alignment/BAMQueue.hpp/.tpp). BamReader reads
+through the port's native library (csrc/bamreader.cpp: BGZF blocks
+inflated on a pool of SALMON_TPU_BAM_THREADS threads, 4 at most by
+default); _PyBam, in pure Python, is its plain version. Records are
 streamed as flat numpy arrays and grouped into fragments by read-name
 hash adjacency (the reference likewise requires all records of a read
-to be contiguous). name_hash is the FNV-1a 64 of the read name, as in
-the JAX package: fragment grouping rests on it.
+to be contiguous); a batch never splits a read-name group. name_hash is
+the FNV-1a 64 of the read name, as in the JAX package: fragment grouping
+rests on it.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ import zlib
 from typing import Iterator
 
 import numpy as np
+
+from salmon_tpu_torch import _native
 
 # BAM flags
 FLAG_PAIRED = 0x1
@@ -59,24 +65,91 @@ class BamBatch:
     names: list = None
 
 
+# per-record capacity of a batch's pools: read bases, CIGAR ops and name
+# bytes (the JAX package's sizes)
+SEQ_CAP, CIGAR_CAP, NAME_CAP = 512, 16, 256
+
+
 class BamReader:
-    """Streaming BAM reader over the pure-Python BGZF walk (_PyBam)."""
+    """Streaming BAM reader on the native library."""
 
     def __init__(self, path: str, batch_records: int = 65536,
                  want_names: bool = False):
         self.path = path
         self.batch_records = batch_records
         self.want_names = want_names
-        self._py = _PyBam(path)
-        self.ref_names = self._py.ref_names
-        self.ref_lens = np.array(self._py.ref_lens, dtype=np.int32)
-        self.header_text = self._py.header_text
+        self._lib = _native.lib()
+        self._h = self._lib.bam_open(str(path).encode())
+        if not self._h:
+            raise IOError(f"failed to open BAM {path}")
+        n = self._lib.bam_n_refs(self._h)
+        self.ref_names = [self._lib.bam_ref_name(self._h, i).decode()
+                          for i in range(n)]
+        self.ref_lens = np.array(
+            [self._lib.bam_ref_len(self._h, i) for i in range(n)],
+            dtype=np.int32)
+        self.header_text = self._lib.bam_text_header(self._h).decode(
+            errors="replace")
 
     def close(self):
-        self._py.close()
+        if self._h:
+            self._lib.bam_close(self._h)
+            self._h = None
 
     def batches(self) -> Iterator[BamBatch]:
-        yield from self._py.batches(self.batch_records, self.want_names)
+        """Batches of up to batch_records records; each array holds the
+        batch's own records (and pool entries) only."""
+        cap = self.batch_records
+        seq_cap, cigar_cap = cap * SEQ_CAP, cap * CIGAR_CAP
+
+        def i32():
+            return np.zeros(cap, np.int32)
+
+        while True:
+            b = BamBatch(
+                refid=i32(), pos=i32(), flag=np.zeros(cap, np.uint16),
+                mapq=np.zeros(cap, np.uint8), mate_refid=i32(),
+                mate_pos=i32(), tlen=i32(), read_len=i32(),
+                seq_off=np.zeros(cap, np.int64),
+                cigar_off=np.zeros(cap, np.int64), cigar_n=i32(),
+                as_tag=i32(), nm_tag=i32(),
+                zw_tag=np.zeros(cap, np.float32),
+                name_hash=np.zeros(cap, np.uint64),
+                seq_buf=np.zeros(seq_cap, np.uint8),
+                cigar_op=np.zeros(cigar_cap, np.uint8),
+                cigar_oplen=np.zeros(cigar_cap, np.uint32), n=0)
+            names_buf = np.zeros(cap * NAME_CAP if self.want_names else 0,
+                                 np.uint8)
+            n = int(self._lib.bam_next_batch(
+                self._h, cap, seq_cap, cigar_cap, b.refid, b.pos, b.flag,
+                b.mapq, b.mate_refid, b.mate_pos, b.tlen, b.read_len,
+                b.seq_off, b.cigar_off, b.cigar_n, b.as_tag, b.nm_tag,
+                b.zw_tag, b.name_hash, b.seq_buf, b.cigar_op,
+                b.cigar_oplen, names_buf, names_buf.shape[0]))
+            if n < 0:
+                raise IOError(f"{self.path}: a BAM record larger than the "
+                              f"batch buffers")
+            if n == 0:
+                return
+            yield _trimmed(b, n, names_buf if self.want_names else None)
+
+
+def _trimmed(b: BamBatch, n: int, names_buf) -> BamBatch:
+    """Views of b's first n records and of the pool entries they use."""
+    for f in ("refid", "pos", "flag", "mapq", "mate_refid", "mate_pos",
+              "tlen", "read_len", "seq_off", "cigar_off", "cigar_n",
+              "as_tag", "nm_tag", "zw_tag", "name_hash"):
+        setattr(b, f, getattr(b, f)[:n])
+    n_seq = int(b.seq_off[-1] + b.read_len[-1])
+    n_cig = int(b.cigar_off[-1] + b.cigar_n[-1])
+    b.seq_buf = b.seq_buf[:n_seq]
+    b.cigar_op = b.cigar_op[:n_cig]
+    b.cigar_oplen = b.cigar_oplen[:n_cig]
+    b.n = n
+    if names_buf is not None:
+        b.names = names_buf.tobytes().split(b"\0")[:n]
+        b.names += [b""] * (n - len(b.names))
+    return b
 
 
 # 4-bit BAM base code -> 0..3 (A, C, G, T), anything else 4 (N)

@@ -34,6 +34,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from salmon_tpu_torch import _native
+
 from salmon_tpu_torch.alignment.errormodel import (ALN_DASH, ALN_HARD,
                                                    ALN_PAD, ALN_SKIP,
                                                    ALN_SOFT, N_BINS, N_FULL,
@@ -237,6 +239,59 @@ class PreparedBatch:
         return int((~self.fits).sum())
 
 
+def pad_records(b, sel, RL: int) -> tuple:
+    """The records `sel` of BamBatch b on a fixed (len(sel), MAXOPS) CIGAR
+    grid and a (len(sel), RL) read-code grid: (ops i32, oplens i32, rseq
+    u8, fits bool). A row that does not fit (no op or more than MAXOPS,
+    a read longer than RL, more than RL + COL_SLACK aligned columns) is
+    all zeros. The native repack (csrc/bamreader.cpp bam_pad_batch);
+    pad_records_numpy is its plain version."""
+    n = sel.size
+    ops = np.empty((n, MAXOPS), np.int32)
+    oplens = np.empty((n, MAXOPS), np.int32)
+    rseq = np.empty((n, RL), np.uint8)
+    ok = np.empty(n, np.uint8)
+    _native.lib().bam_pad_batch(
+        n, np.ascontiguousarray(sel, np.int64),
+        np.ascontiguousarray(b.read_len, np.int32),
+        np.ascontiguousarray(b.seq_off, np.int64),
+        np.ascontiguousarray(b.seq_buf, np.uint8),
+        np.ascontiguousarray(b.cigar_off, np.int64),
+        np.ascontiguousarray(b.cigar_n, np.int32),
+        np.ascontiguousarray(b.cigar_op, np.uint8),
+        np.ascontiguousarray(b.cigar_oplen, np.uint32),
+        RL, MAXOPS, RL + COL_SLACK, ops, oplens, rseq, ok)
+    fits = ok.astype(bool)
+    # the native pass keeps the ops of a row whose columns overflow
+    ops[~fits] = 0
+    oplens[~fits] = 0
+    return ops, oplens, rseq, fits
+
+
+def pad_records_numpy(b, sel, RL: int) -> tuple:
+    """Plain version of pad_records, in numpy."""
+    rl_all = b.read_len[sel].astype(np.int32)
+    cn = b.cigar_n[sel].astype(np.int64)
+    co = b.cigar_off[sel].astype(np.int64)
+    opcols = np.arange(MAXOPS, dtype=np.int64)
+    gather = np.minimum(co[:, None] + opcols,
+                        max(b.cigar_op.size - 1, 0))
+    opmask = (opcols[None, :] < cn[:, None]) & (cn[:, None] <= MAXOPS)
+    ops = np.where(opmask, b.cigar_op[gather], 0).astype(np.int32)
+    oplens = np.where(opmask, b.cigar_oplen[gather], 0).astype(np.int32)
+    fits = ((cn > 0) & (cn <= MAXOPS) & (rl_all <= RL)
+            & (oplens.sum(axis=1) <= RL + COL_SLACK))
+    ops[~fits] = 0
+    oplens[~fits] = 0
+    so = b.seq_off[sel].astype(np.int64)
+    rcols = np.arange(RL, dtype=np.int64)
+    sgather = np.minimum(so[:, None] + rcols,
+                         max(b.seq_buf.size - 1, 0))
+    rmask = (rcols[None, :] < rl_all[:, None]) & fits[:, None]
+    rseq = np.where(rmask, b.seq_buf[sgather], 0).astype(np.uint8)
+    return ops, oplens, rseq, fits
+
+
 class DeviceAlignmentErrorModel:
     """Functional twin of errormodel.AlignmentErrorModel whose counts,
     expansion and likelihood live on `device`."""
@@ -270,7 +325,8 @@ class DeviceAlignmentErrorModel:
         mask. Rows that do not fit the grid (cigar ops > 16, read longer
         than the grid, or expanded columns past the slack) are zeroed:
         they contribute no valid columns on the device and go through
-        the numpy walk instead."""
+        the numpy walk instead. The ragged to padded repack runs on the
+        native library (pad_records)."""
         n = sel.size
         rl_all = b.read_len[sel].astype(np.int32)
         rl_max = min(int(rl_all.max()) if n else 1, self.read_len_cap)
@@ -278,26 +334,7 @@ class DeviceAlignmentErrorModel:
         # only on the records seen so far, as in the JAX package
         self._rl_grid = max(self._rl_grid, -(-rl_max // 64) * 64)
         RL = self._rl_grid
-
-        cn = b.cigar_n[sel].astype(np.int64)
-        co = b.cigar_off[sel].astype(np.int64)
-        opcols = np.arange(MAXOPS, dtype=np.int64)
-        gather = np.minimum(co[:, None] + opcols,
-                            max(b.cigar_op.size - 1, 0))
-        opmask = (opcols[None, :] < cn[:, None]) & (cn[:, None] <= MAXOPS)
-        ops = np.where(opmask, b.cigar_op[gather], 0).astype(np.int32)
-        oplens = np.where(opmask, b.cigar_oplen[gather], 0).astype(np.int32)
-        fits = ((cn > 0) & (cn <= MAXOPS) & (rl_all <= RL)
-                & (oplens.sum(axis=1) <= RL + COL_SLACK))
-        ops[~fits] = 0
-        oplens[~fits] = 0
-        so = b.seq_off[sel].astype(np.int64)
-        rcols = np.arange(RL, dtype=np.int64)
-        sgather = np.minimum(so[:, None] + rcols,
-                             max(b.seq_buf.size - 1, 0))
-        rmask = (rcols[None, :] < rl_all[:, None]) & fits[:, None]
-        rseq = np.where(rmask, b.seq_buf[sgather], 0).astype(np.uint8)
-
+        ops, oplens, rseq, fits = pad_records(b, sel, RL)
         txp = ref_map[np.clip(b.refid[sel], 0, ref_map.size - 1)]
         toff = self._seq_off[np.clip(txp, 0, self._seq_off.size - 2)]
         tlen = self._txp_lens[np.clip(txp, 0, self._txp_lens.size - 1)]

@@ -4,7 +4,8 @@ Counterpart of salmon_tpu/alignment/quant.py (reference
 salmonAlignmentQuantify / quantifyLibrary / processMiniBatch,
 src/alignment/SalmonQuantifyAlignments.cpp:1524,940,126). The BAM is
 read on the host (alignment/bamio.py) and fragments are grouped by
-read-name adjacency with vectorized numpy; the per-alignment weights
+read-name adjacency with vectorized numpy, then weighed in one native
+pass (alignment/alnweights.py); the per-alignment weights
 combine the fragment-length probability, library-format compatibility
 and the error model's likelihood (the alignment score before the model
 has seen numPreBurninFrags fragments). On `device`: the error model
@@ -23,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from salmon_tpu_torch.alignment.alnweights import group_eq
 from salmon_tpu_torch.alignment.bamio import (BamReader, FLAG_PAIRED,
                                               FLAG_READ1, FLAG_READ2,
                                               FLAG_REVERSE, FLAG_UNMAPPED)
@@ -171,8 +173,9 @@ def _ont_update(ont, b, recs, w):
 
 
 def _weigh_fragments(fid, txp_k, flen_k, obs_k, logw, opts, paired):
-    """Per-fragment normalized alignment weights and eq rows (the JAX
-    driver's numpy branch, salmon_tpu/alignment/quant.py:552-613).
+    """Per-fragment normalized alignment weights and eq rows (the numpy
+    branch of salmon_tpu/alignment/quant.py:552-613): with
+    _best_alignments, the plain version of alnweights.group_eq.
     Returns (eq_txp, eq_w, w, valid_w, starts, counts, wn, fld_hist or
     None)."""
     starts = np.concatenate([[0], np.nonzero(fid[1:] != fid[:-1])[0] + 1])
@@ -522,14 +525,17 @@ def quantify_alignments(args, opts, cmd_args, device) -> int:
                                         else -1e30))
 
                 # fid is a cumsum over the BAM walk: nondecreasing, so
-                # each fragment's alignments are one contiguous run
-                (eq_txp, eq_w, w, valid_w, starts, counts, wn,
-                 hist) = _weigh_fragments(fid, txp_k, flen_k, obs_k, logw,
-                                          opts, paired_detect)
-                F = starts.shape[0]
-                num_mapped += int((eq_txp[:, 0] != INVALID_TXP).sum())
+                # each fragment's alignments are one contiguous run, and
+                # one native pass weighs them (the native branch of the
+                # JAX package's -a; _weigh_fragments and _best_alignments
+                # are its plain version)
+                eq_txp, eq_w, wn, best, hist, n_map = group_eq(
+                    fid, txp_k, flen_k, obs_k, logw, opts.min_aln_prob,
+                    paired_detect, opts.max_frag_length)
+                F = best.shape[0]
+                num_mapped += n_map
                 acc.add_batch(eq_txp, eq_w, None)
-                if hist is not None:
+                if paired_detect:
                     fld.add_observations(hist)
 
                 # online error-model update with this batch's posterior
@@ -548,7 +554,7 @@ def quantify_alignments(args, opts, cmd_args, device) -> int:
                                                    - t_err)
                     err_trained += F
 
-                bsel = _best_alignments(w, valid_w, starts, counts)
+                bsel = best[best >= 0]
                 if paired_detect:
                     # observed-format histogram: one count per fragment
                     fmt_hist += np.bincount(np.clip(obs_k[bsel], 0, 5),

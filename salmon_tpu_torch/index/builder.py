@@ -26,7 +26,7 @@ import numpy as np
 logger = logging.getLogger("salmon_tpu_torch")
 
 from salmon_tpu_torch.constants import DEFAULTS
-from salmon_tpu_torch.index import kmer_enum
+from salmon_tpu_torch.index import native_kmers
 from salmon_tpu_torch.index.hashtable import (KmerHashTable, build_hash_table,
                                         SLOTS_PER_BUCKET as
                                         HT_SLOTS_PER_BUCKET)
@@ -139,6 +139,43 @@ PARTITIONED_BUILD_BASES = 1_500_000_000   # switch to the partitioned build
 TABLE_DIRECT_MAX_KEYS = 800_000_000       # past this, tables are per-shard
 
 
+def _enumerate_sorted_records(seq_codes: np.ndarray,
+                              seq_offsets: np.ndarray, k: int) -> tuple:
+    """Plain version of native_kmers.enumerate_sorted: each record's
+    canonical k-mers in numpy, then one stable sort by k-mer (records stay
+    in (txp, pos) order within a k-mer). Returns (kmers u64, txp i32, pos
+    i32, fwd bool)."""
+    all_kmers, all_txp, all_pos, all_fwd = [], [], [], []
+    for tid in range(seq_offsets.shape[0] - 1):
+        kms, valid_mask = kmers_of(
+            seq_codes[seq_offsets[tid]:seq_offsets[tid + 1]], k)
+        if kms.shape[0] == 0:
+            continue
+        canon, fwd = canonical_kmers(kms, k)
+        canon = canon[valid_mask]
+        fwd = fwd[valid_mask]
+        pos = np.nonzero(valid_mask)[0].astype(np.int32)
+        all_kmers.append(canon)
+        all_txp.append(np.full(canon.shape[0], tid, dtype=np.int32))
+        all_pos.append(pos)
+        all_fwd.append(fwd)
+
+    if all_kmers:
+        km = np.concatenate(all_kmers)
+        tx = np.concatenate(all_txp)
+        po = np.concatenate(all_pos)
+        fw = np.concatenate(all_fwd)
+    else:
+        km = np.zeros(0, dtype=np.uint64)
+        tx = po = np.zeros(0, dtype=np.int32)
+        fw = np.zeros(0, dtype=bool)
+
+    # stable sort keeps (txp,pos) order within a k-mer
+    order = np.argsort(km, kind="stable")
+    km, tx, po, fw = km[order], tx[order], po[order], fw[order]
+    return km, tx, po, fw
+
+
 def build_index(
     transcripts_path: str,
     k: int = DEFAULTS.kmer_len,
@@ -158,8 +195,8 @@ def build_index(
 
     Genome-decoy scale (BASELINE config 5, 3 Gb+ of concatenated
     input): the enumeration runs per canonical top-bits partition
-    (`partition_bits`, 6 from PARTITIONED_BUILD_BASES on, else 0) in
-    bounded chunks (index.kmer_enum), and past TABLE_DIRECT_MAX_KEYS no
+    (`partition_bits`, 6 from PARTITIONED_BUILD_BASES on, else 0) with
+    partition-sized buffers (native_kmers), and past TABLE_DIRECT_MAX_KEYS no
     monolithic hash table is built: such indexes are quantified with
     --indexShards, which builds self-contained per-shard tables.
     """
@@ -213,33 +250,9 @@ def build_index(
                                   first_decoy_index, seq_codes,
                                   seq_offsets, partition_bits,
                                   keep_duplicates, max_occs_kept)
-    all_kmers, all_txp, all_pos, all_fwd = [], [], [], []
-    for tid, rec in enumerate(records):
-        kms, valid_mask = kmers_of(rec.seq_codes, k)
-        if kms.shape[0] == 0:
-            continue
-        canon, fwd = canonical_kmers(kms, k)
-        canon = canon[valid_mask]
-        fwd = fwd[valid_mask]
-        pos = np.nonzero(valid_mask)[0].astype(np.int32)
-        all_kmers.append(canon)
-        all_txp.append(np.full(canon.shape[0], tid, dtype=np.int32))
-        all_pos.append(pos)
-        all_fwd.append(fwd)
-
-    if all_kmers:
-        km = np.concatenate(all_kmers)
-        tx = np.concatenate(all_txp)
-        po = np.concatenate(all_pos)
-        fw = np.concatenate(all_fwd)
-    else:
-        km = np.zeros(0, dtype=np.uint64)
-        tx = po = np.zeros(0, dtype=np.int32)
-        fw = np.zeros(0, dtype=bool)
-
-    # stable sort keeps (txp,pos) order within a k-mer
-    order = np.argsort(km, kind="stable")
-    km, tx, po, fw = km[order], tx[order], po[order], fw[order]
+    # OpenMP enumeration + parallel radix sort on the native library;
+    # _enumerate_sorted_records is its plain version
+    km, tx, po, fw = native_kmers.enumerate_sorted(seq_codes, seq_offsets, k)
     uniq, starts = np.unique(km, return_index=True)
     offsets = np.concatenate([starts.astype(np.int64),
                               np.array([km.shape[0]], dtype=np.int64)])
@@ -303,51 +316,61 @@ def _build_partitioned(names, complete_lengths_l, info, k,
                        seq_offsets, partition_bits,
                        keep_duplicates,
                        max_occs_kept: int = 0) -> TranscriptomeIndex:
-    """Memory-bounded build: per canonical-top-bits partition, sort and
-    extract unique keys, writing into buffers at the exact record count
-    (index.kmer_enum's counting pass). Output is bit-identical to the
-    flat path; only peak memory differs (chunk and partition scratch
-    instead of whole-input buffers). Logs as clocks the seconds of the
-    count, the enumeration (the scatter pass), the CSR (the
-    per-partition keys, sorts and unique keys) and the table, if one is
-    built."""
+    """Memory-bounded build: per canonical-top-bits partition, enumerate,
+    sort and extract unique keys on the native library
+    (native_kmers.enumerate_sorted_partitioned; index.kmer_enum is its
+    plain version), writing into buffers at the exact record count (the
+    native count). Output is bit-identical to the flat path; only peak
+    memory differs (partition-sized sort buffers instead of whole-input
+    ones). Logs as clocks the seconds of the count, the enumeration (the
+    partitions' enumeration, sort and decode), the CSR (the copies and
+    unique keys) and the table, if one is built."""
     lengths = np.diff(seq_offsets).astype(np.int32)
     complete_lengths = np.array(complete_lengths_l, np.int32)
     t0 = time.perf_counter()
-    part_counts = kmer_enum.count_partitions(seq_codes, seq_offsets, k,
-                                             partition_bits)
-    total = int(part_counts.sum())
+    total = native_kmers.count_total(seq_codes, seq_offsets, k)
     t1 = time.perf_counter()
     logger.info("partitioned index build: %d records over %d partitions",
                 total, 1 << partition_bits)
-    tx = np.empty(total, np.int32)
-    pf = np.empty(total, np.int32)
-    kmer_enum.scatter_partitions(seq_codes, seq_offsets, k, partition_bits,
-                                 part_counts, tx, pf)
-    t2 = time.perf_counter()
-    # unique-key buffers at the record-count upper bound; trimmed by view
-    # at the end
-    uniq_buf = np.empty(total, np.uint64)
-    off_buf = np.empty(total + 1, np.int64)
+    # the record planes, and unique-key buffers at the record-count upper
+    # bound (trimmed by view at the end), are allocated once the first
+    # partition is out: an enumeration may hold whole-input scratch
+    # before it (the plain version's scatter pass)
+    tx = pf = uniq_buf = off_buf = None
     base = 0
     nu = 0
-    for kmp, _, _ in kmer_enum.sorted_partitions(seq_codes, seq_offsets, k,
-                                                 part_counts, tx, pf):
+    t_enum = 0.0
+    parts = native_kmers.enumerate_sorted_partitioned(
+        seq_codes, seq_offsets, k, partition_bits)
+    while True:
+        t = time.perf_counter()
+        part = next(parts, None)
+        t_enum += time.perf_counter() - t
+        if tx is None:
+            tx, pf = np.empty(total, np.int32), np.empty(total, np.int32)
+            uniq_buf = np.empty(total, np.uint64)
+            off_buf = np.empty(total + 1, np.int64)
+        if part is None:
+            break
+        kmp, txp_, pfp_ = part
         n = kmp.shape[0]
         if not n:
             continue
+        tx[base:base + n] = txp_
+        pf[base:base + n] = pfp_
         up, sp = np.unique(kmp, return_index=True)
         m = up.shape[0]
         uniq_buf[nu:nu + m] = up
         off_buf[nu:nu + m] = sp.astype(np.int64) + base
         nu += m
         base += n
+        del part, kmp, txp_, pfp_
     off_buf[nu] = total
     uniq = uniq_buf[:nu]
     offsets = off_buf[:nu + 1]
     clocks = {"index_count_seconds": t1 - t0,
-              "index_enumerate_seconds": t2 - t1,
-              "index_csr_seconds": time.perf_counter() - t2}
+              "index_enumerate_seconds": t_enum,
+              "index_csr_seconds": time.perf_counter() - t1 - t_enum}
 
     true_counts = None
     if max_occs_kept:

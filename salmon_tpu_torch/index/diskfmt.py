@@ -39,6 +39,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from salmon_tpu_torch.index import native_kmers
+
 KMER_DELTA_ESCAPE_FRAC = 0.25   # fall back to raw u64 past this
 
 
@@ -233,7 +235,7 @@ def oct_align_csr(occ_offsets, arrays, pad_vals, cap: int = 8):
     off = np.asarray(occ_offsets, np.int64)
     counts = np.diff(off)
     n = counts.shape[0]
-    pads = _oct_align_pads(counts, cap)
+    pads = native_kmers.oct_align_pads(counts, cap)
     starts = np.empty(n, np.int64)
     np.cumsum(counts + pads, out=starts)
     starts -= counts               # each key's padded start
@@ -254,10 +256,11 @@ def oct_align_csr(occ_offsets, arrays, pad_vals, cap: int = 8):
     return res_off, out_arrays
 
 
-def _oct_align_pads(counts: np.ndarray, cap: int) -> np.ndarray:
+def _oct_align_pads_py(counts: np.ndarray, cap: int) -> np.ndarray:
     """Per-key pad records so min(count, cap) leading records never
-    cross an oct-row boundary. Sequential greedy (phase chain) over
-    Python ints: each key's pad depends on every earlier key's."""
+    cross an oct-row boundary: the plain version of
+    native_kmers.oct_align_pads, a sequential greedy (phase chain) over
+    Python ints, each key's pad depending on every earlier key's."""
     counts = np.ascontiguousarray(counts, np.int64)
     pads = [0] * counts.shape[0]
     pos = 0

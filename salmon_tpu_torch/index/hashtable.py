@@ -64,6 +64,8 @@ import dataclasses
 
 import numpy as np
 
+from salmon_tpu_torch.index import native_kmers
+
 SLOTS_PER_BUCKET = 4
 
 
@@ -181,6 +183,71 @@ def _rank_in_bucket(bucket: np.ndarray, counts: np.ndarray):
     return rank
 
 
+def _place_keys_numpy(b1: np.ndarray, b2: np.ndarray, counts: np.ndarray,
+                      n_buckets: int) -> tuple:
+    """Two-choice placement of the keys whose candidate buckets are b1
+    and b2 (build_hash_table rounds 1-3): (slot_key (n_buckets, 4) int64,
+    the key index per slot or -1, n_evicted). The plain version of
+    native_kmers.table_place, equal to it slot for slot."""
+    counts = np.asarray(counts, np.int64)
+    # balanced first choice (power of two choices): each key
+    # prefers the candidate bucket with lower total candidate
+    # pressure, which evens bucket fills and collapses the
+    # overflow tail
+    cand1 = np.bincount(b1, minlength=n_buckets)
+    cand2 = np.bincount(b2, minlength=n_buckets)
+    prefer1 = cand1[b1] <= cand2[b2]
+    first = np.where(prefer1, b1, b2)
+    second = np.where(prefer1, b2, b1)
+
+    # round 1: place in the preferred bucket, lowest-count keys win
+    rank1 = _rank_in_bucket(first, counts)
+    placed1 = rank1 < SLOTS_PER_BUCKET
+    used = np.bincount(first[placed1], minlength=n_buckets)
+
+    # round 2: overflow keys fall back to the alternate's remaining
+    # capacity
+    idx2 = np.nonzero(~placed1)[0]
+    rank2 = _rank_in_bucket(second[idx2], counts[idx2])
+    cap2 = SLOTS_PER_BUCKET - used
+    placed2 = rank2 < cap2[second[idx2]]
+
+    slot_key = np.full((n_buckets, SLOTS_PER_BUCKET), -1, np.int64)
+    k1 = np.nonzero(placed1)[0]
+    slot_key[first[k1], rank1[k1]] = k1
+    k2 = idx2[placed2]
+    slot2 = (used[second[k2]] + rank2[placed2]).astype(np.int64)
+    slot_key[second[k2], slot2] = k2
+
+    # round 3: deterministic cuckoo kicks for the overflow tail
+    # (~1e-4 of keys at the default load) — the reference's
+    # pufferfish dictionary is total, so routine evictions would
+    # silently drop seeds; a bounded random-walk reduces evictions
+    # to (practically) zero below ~0.9 load, with
+    # drop-on-walk-exhaustion as the extreme-load fallback
+    n_evicted = 0
+    for u in idx2[~placed2]:
+        key = int(u)
+        done = False
+        for t in range(64):
+            for b in (int(b1[key]), int(b2[key])):
+                free = np.nonzero(slot_key[b] < 0)[0]
+                if free.size:
+                    slot_key[b, free[0]] = key
+                    done = True
+                    break
+            if done:
+                break
+            b = int(b1[key]) if t % 2 == 0 else int(b2[key])
+            v = (key * 7 + t * 5 + 3) % SLOTS_PER_BUCKET
+            victim = int(slot_key[b, v])
+            slot_key[b, v] = key
+            key = victim
+        if not done:
+            n_evicted += 1    # the last displaced key is dropped
+    return slot_key, n_evicted
+
+
 def table_n_slots(n_keys: int, load_factor: float = 0.5,
                   max_load_factor: float = 0.62) -> int:
     """Power-of-two slot count for `n_keys`: targets `load_factor` but
@@ -264,61 +331,10 @@ def build_hash_table(keys_u64: np.ndarray,
     pay_counts = (np.asarray(filter_counts, np.int64)
                   if filter_counts is not None else counts)
 
-    # balanced first choice (power of two choices): each key
-    # prefers the candidate bucket with lower total candidate
-    # pressure, which evens bucket fills and collapses the
-    # overflow tail
-    cand1 = np.bincount(b1, minlength=n_buckets)
-    cand2 = np.bincount(b2, minlength=n_buckets)
-    prefer1 = cand1[b1] <= cand2[b2]
-    first = np.where(prefer1, b1, b2)
-    second = np.where(prefer1, b2, b1)
-
-    # round 1: place in the preferred bucket, lowest-count keys win
-    rank1 = _rank_in_bucket(first, counts)
-    placed1 = rank1 < SLOTS_PER_BUCKET
-    used = np.bincount(first[placed1], minlength=n_buckets)
-
-    # round 2: overflow keys fall back to the alternate's remaining
-    # capacity
-    idx2 = np.nonzero(~placed1)[0]
-    rank2 = _rank_in_bucket(second[idx2], counts[idx2])
-    cap2 = SLOTS_PER_BUCKET - used
-    placed2 = rank2 < cap2[second[idx2]]
-
-    slot_key = np.full((n_buckets, SLOTS_PER_BUCKET), -1, np.int64)
-    k1 = np.nonzero(placed1)[0]
-    slot_key[first[k1], rank1[k1]] = k1
-    k2 = idx2[placed2]
-    slot2 = (used[second[k2]] + rank2[placed2]).astype(np.int64)
-    slot_key[second[k2], slot2] = k2
-
-    # round 3: deterministic cuckoo kicks for the overflow tail
-    # (~1e-4 of keys at the default load) — the reference's
-    # pufferfish dictionary is total, so routine evictions would
-    # silently drop seeds; a bounded random-walk reduces evictions
-    # to (practically) zero below ~0.9 load, with
-    # drop-on-walk-exhaustion as the extreme-load fallback
-    n_evicted = 0
-    for u in idx2[~placed2]:
-        key = int(u)
-        done = False
-        for t in range(64):
-            for b in (int(b1[key]), int(b2[key])):
-                free = np.nonzero(slot_key[b] < 0)[0]
-                if free.size:
-                    slot_key[b, free[0]] = key
-                    done = True
-                    break
-            if done:
-                break
-            b = int(b1[key]) if t % 2 == 0 else int(b2[key])
-            v = (key * 7 + t * 5 + 3) % SLOTS_PER_BUCKET
-            victim = int(slot_key[b, v])
-            slot_key[b, v] = key
-            key = victim
-        if not done:
-            n_evicted += 1    # the last displaced key is dropped
+    # rounds 1-3 of the placement on the native library
+    # (native_kmers.table_place); _place_keys_numpy is its plain version
+    slot_key, n_evicted = native_kmers.table_place(keys_u64, counts,
+                                                   n_buckets)
 
     counts16 = np.minimum(pay_counts, 0xFFFF).astype(np.uint32)
     fpcnt = ((fp << np.uint32(16)) | counts16).view(np.int32)

@@ -1,10 +1,11 @@
 """Canonical k-mer enumeration for the index build, in numpy, partitioned
 by the top bits of the canonical k-mer.
 
-Counterpart of the JAX package's native enumeration, which the port
-may not load: `salmon_tpu/index/native_kmers.py::count_total`,
-`::enumerate_sorted` and `::enumerate_sorted_partitioned` (over
-native/kmersort.cpp). The k-mer convention is `utils.dna`'s, bit for
+The plain version of the port's native enumeration, which the index
+build calls: `index/native_kmers.py::count_total`, `::enumerate_sorted`
+and `::enumerate_sorted_partitioned` (over csrc/kmersort.cpp, the copy
+of the JAX package's source); the tests hold the two equal. The k-mer
+convention is `utils.dna`'s, bit for
 bit: the k-mer at position p is the big-endian 2-bit packing of bases
 p .. p + k - 1, canonical = min(fwd, revcomp), fwd flag = (fwd <=
 revcomp), and a window that holds a base coded >= 4 (N) is no k-mer.

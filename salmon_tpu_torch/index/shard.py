@@ -32,6 +32,7 @@ import os
 
 import numpy as np
 
+from salmon_tpu_torch.index import native_kmers
 from salmon_tpu_torch.index.builder import TranscriptomeIndex
 from salmon_tpu_torch.index.hashtable import (appendix_plan, build_hash_table,
                                               mix32b, split_u64,
@@ -188,8 +189,9 @@ def iter_shard_arrays(index_dir: str, n_shards: int,
     plane per shard and gathers each shard's occurrence slice from the
     memmapped occurrence plane, so peak host memory is one shard's
     arrays plus the shared counts/starts/owner planes, where
-    shard_index_arrays needs the whole index loaded. (The JAX package
-    gathers with its native library; this copy with numpy.)
+    shard_index_arrays needs the whole index loaded. The gathers run on
+    the native library (native_kmers.gather_rows), as in the JAX
+    package.
 
     Yields (shard_id, info.json dict, shard dict) for each shard of
     `shards` (default: all), where the shard dict has tab_rows
@@ -259,11 +261,11 @@ def iter_shard_arrays(index_dir: str, n_shards: int,
                 - np.repeat(off_s[:-1], cnt_s))
         if occ48:
             txp_s, pf_s = diskfmt.unpack_occ48(
-                occ_packed[gidx],
+                native_kmers.gather_rows(occ_packed, gidx),
                 sep_halved=meta.get("occ48_sep_halved", False))
         else:
-            txp_s = np.asarray(occ_txp_mm[gidx])
-            pf_s = np.asarray(occ_pf_mm[gidx])
+            txp_s = native_kmers.gather_rows(occ_txp_mm, gidx)
+            pf_s = native_kmers.gather_rows(occ_pf_mm, gidx)
         del gidx
         tc_s = None
         if tc_idx is not None:

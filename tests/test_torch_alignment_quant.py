@@ -11,9 +11,9 @@ alignments of the second, on the grid and on its host path.
 Tolerances: quant.sf within the golden tolerance (rtol 5e-3 / atol
 0.5); num_processed, num_mapped and lib_format_counts.json equal. The
 JAX driver weighs alignments in its native pass (alnweights.group_eq)
-where libsalmontpu builds and the port in the JAX driver's numpy branch;
-both run float32 EMs over the same classes, so the classes of --dumpEq
-are equal and their weights agree to float32 rounding (rtol 1e-5).
+and the port in its own copy of that pass; both run float32 EMs over
+the same classes, so the classes of --dumpEq are equal and their
+weights agree to float32 rounding (rtol 1e-5).
 --sampleOut draws at random and is held by structure: one record (pair)
 per assigned fragment, ZW in (0, 1].
 """

@@ -1,10 +1,12 @@
 """The port's BAM reader and writers against the JAX package's.
 
-The port reads BAM with a copy of the JAX package's pure-Python reader
-(_PyBam) and loads no native library; its batches must equal, field by
-field, both the JAX _PyBam's and the JAX native reader's on the sample
-truth BAM and on a mixed-CIGAR BAM (indels, clips, =/X runs past the
-error model's 16-op grid, reverse-strand and unmapped records).
+The port reads BAM with its own copy of the JAX package's native reader
+(BamReader on csrc/bamreader.cpp; tests/test_torch_native.py holds it to
+its plain version, the port's copy of the pure-Python _PyBam); its
+batches must equal, field by field, both the JAX _PyBam's and the JAX
+native reader's on the sample truth BAM and on a mixed-CIGAR BAM
+(indels, clips, =/X runs past the error model's 16-op grid,
+reverse-strand and unmapped records).
 write_bam and the --sampleOut BamWriter must write the JAX package's
 bytes. The helpers here also make the BAMs of test_torch_errormodel.py
 and test_torch_alignment_quant.py.

@@ -1,6 +1,7 @@
-"""The port's partitioned index build (salmon_tpu_torch/index/kmer_enum.py
-and builder._build_partitioned) against the port's flat build and the
-JAX package's partitioned build on its native library, all exact:
+"""The port's partitioned index build (builder._build_partitioned, on the
+port's native library, and on index/kmer_enum.py, its plain version)
+against the port's flat build and the JAX package's partitioned build on
+its native library, all exact:
 every partition width, with and without the table (the table-less
 layout forced at toy scale through each package's
 TABLE_DIRECT_MAX_KEYS), with --maxOccsKept pruning, with decoys given
@@ -19,6 +20,7 @@ from salmon_tpu.index import builder as jbuilder
 from salmon_tpu.index import native_kmers
 from salmon_tpu.index import shard as jshard
 from salmon_tpu_torch.index import builder, kmer_enum, shard
+from salmon_tpu_torch.index import native_kmers as port_native
 from salmon_tpu_torch.utils.dna import kmers_of
 
 FASTA = os.path.join(os.path.dirname(__file__), "data", "transcripts.fasta")
@@ -37,6 +39,15 @@ def _tableless(mp):
     """Both packages skip the monolithic table at any key count."""
     mp.setattr(builder, "TABLE_DIRECT_MAX_KEYS", 0)
     mp.setattr(jbuilder, "TABLE_DIRECT_MAX_KEYS", 0)
+
+
+class _PlainEnumeration:
+    """The builder's native enumeration replaced by its plain version,
+    index.kmer_enum."""
+    count_total = staticmethod(kmer_enum.count_total)
+    enumerate_sorted = staticmethod(kmer_enum.enumerate_sorted)
+    enumerate_sorted_partitioned = staticmethod(
+        kmer_enum.enumerate_sorted_partitioned)
 
 
 def assert_same_index(got, want):
@@ -174,7 +185,10 @@ def seam_fasta(tmp_path_factory):
 
 @pytest.mark.parametrize("table", [True, False], ids=["table", "tableless"])
 def test_chunk_seams_and_ns(monkeypatch, seam_fasta, table):
+    """The build on the plain enumeration (kmer_enum in place of the
+    native library) with chunk seams on and across Ns."""
     monkeypatch.setattr(kmer_enum, "CHUNK_BASES", 200)
+    monkeypatch.setattr(builder, "native_kmers", _PlainEnumeration)
     flat = builder.build_index(seam_fasta, k=K)
     if not table:
         _tableless(monkeypatch)
@@ -276,13 +290,13 @@ def test_auto_rule_takes_the_partitioned_path(monkeypatch):
     PARTITIONED_BUILD_BASES on, as the JAX package does, and the
     no-argument build still equals the JAX one."""
     seen = []
-    real = kmer_enum.count_partitions
+    real = port_native.enumerate_sorted_partitioned
 
     def spy(seq, off, k, bits):
         seen.append(bits)
         return real(seq, off, k, bits)
 
-    monkeypatch.setattr(kmer_enum, "count_partitions", spy)
+    monkeypatch.setattr(port_native, "enumerate_sorted_partitioned", spy)
     flat = builder.build_index(FASTA, k=K)
     assert seen == []
     monkeypatch.setattr(builder, "PARTITIONED_BUILD_BASES", 1000)
@@ -308,16 +322,19 @@ PART_PLANE_BYTES = 10 * 8
 
 
 def test_partitioned_enumeration_memory_is_bounded(monkeypatch):
-    """On a random ~4 Mb record, the partitioned build up to the CSR
+    """On a random ~4 Mb record, the partitioned build on the plain
+    enumeration (kmer_enum in place of the native library) up to the CSR
     (table-less: no table is built) peaks at most at its output planes
     plus the chunk and partition scratch reckoned above; kmers_of on the
-    same record alone needs more than that scratch (n * k * 8 bytes)."""
+    same record alone needs more than that scratch (n * k * 8 bytes).
+    The native build's bound: tests/test_torch_native.py."""
     rng = np.random.default_rng(5)
     n, k, bits = 4_000_000, 31, 6
     seq = rng.integers(0, 4, n).astype(np.uint8)
     seq[rng.integers(0, n, 400)] = 4
     off = np.array([0, n], np.int64)
     _tableless(monkeypatch)
+    monkeypatch.setattr(builder, "native_kmers", _PlainEnumeration)
     counts = kmer_enum.count_partitions(seq, off, k, bits)
     total = int(counts.sum())
     scratch = (CHUNK_PLANE_BYTES * (kmer_enum.CHUNK_BASES + k)

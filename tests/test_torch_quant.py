@@ -232,10 +232,11 @@ def test_no_jax_imports_in_the_port():
                 "parallel/sharded.py", "parallel/em.py", "parallel/launch.py",
                 "index/shard.py", "index/kmer_enum.py"):
         assert os.path.join(REPO, "salmon_tpu_torch", mod) in files, mod
-    # nor does it load the JAX package's native library or read the JAX
-    # driver's device switches
-    native = re.compile(r"libsalmontpu|SALMON_TPU_ALIGN_DEVICE|"
-                        r"SALMON_TPU_HOST_ERRMODEL")
+    # nor does it load, build or name the JAX package's native library
+    # (the port builds its own from salmon_tpu_torch/csrc), or read the
+    # JAX package's -a device switches
+    native = re.compile(r"\bnative/|\bnative\.build|libsalmontpu|"
+                        r"SALMON_TPU_ALIGN_DEVICE|SALMON_TPU_HOST_ERRMODEL")
     bad = []
     for path in files:
         with open(path) as fh:
@@ -243,6 +244,39 @@ def test_no_jax_imports_in_the_port():
                     for i, ln in enumerate(fh, 1)
                     if pattern.match(ln) or native.search(ln)]
     assert not bad, bad
+    from salmon_tpu_torch import _native
+    assert _native.CSRC == os.path.join(REPO, "salmon_tpu_torch", "csrc")
+    assert _native.BUILD == os.path.join(REPO, "salmon_tpu_torch", "_build")
+    assert all(os.path.exists(os.path.join(_native.CSRC, src))
+               for src in _native.SOURCES)
+
+
+def test_native_build_failure_raises(monkeypatch, tmp_path):
+    """A compile that fails raises RuntimeError with the compiler's log,
+    at the entry points too: no numpy fallback. The compiler is given
+    only the sources under salmon_tpu_torch/csrc."""
+    from salmon_tpu_torch import _native
+    from salmon_tpu_torch.index import native_kmers
+    from salmon_tpu_torch.io import fastq
+
+    args = tmp_path / "args.txt"
+    cxx = tmp_path / "failing-g++"
+    cxx.write_text(f"#!/bin/sh\necho \"$@\" > {args}\n"
+                   "echo 'error: no such compiler' >&2\nexit 1\n")
+    cxx.chmod(0o755)
+    monkeypatch.setattr(_native, "_cxx", lambda: str(cxx))
+    monkeypatch.setattr(_native, "BUILD", str(tmp_path / "build"))
+    monkeypatch.setattr(_native, "_loaded", {})
+    with pytest.raises(RuntimeError, match="no such compiler"):
+        _native.lib()
+    srcs = [a for a in args.read_text().split() if a.endswith(".cpp")]
+    assert srcs == [os.path.join(REPO, "salmon_tpu_torch", "csrc", s)
+                    for s in _native.SOURCES]
+    with pytest.raises(RuntimeError, match="no such compiler"):
+        native_kmers.oct_align_pads(np.ones(4, np.int64), 8)
+    with pytest.raises(RuntimeError, match="no such compiler"):
+        list(fastq.iter_paired_chunks([READS[1]], [READS[3]], 64, 128))
+    assert not os.listdir(tmp_path / "build")
 
 
 def test_cli_quant_needs_cuda_by_default(port_index, tmp_path):
