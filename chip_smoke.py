@@ -13,6 +13,15 @@ Phases, one line each; any failure raises and exits non-zero:
                shapes, at the rescue's band (80) and shapes, and at
                bands 40 and 7; the kernel's time (launches through its
                C entry), the plain version's time and the bound for each
+     bench   — `python -m salmon_tpu_torch.bench` (the port's harness)
+               in a process of its own with BENCH_BUILD_HS=0: its JSON
+               line has bench.py's nine keys, the EM fixture's 964,064
+               entries, positive sample and EM rates and a banded_dp
+               launch on each mapping call; its mapped fraction is the
+               port's CPU map_paired_batch's on the same tile; a
+               profiled mapping call names banded_dp_kernel; the card's
+               EM after 100 iterations on the fixture is held to the
+               port's CPU run_em
      host    — each function of the host library against its plain
                version on this machine's host at phase 5's sizes (the
                scale set is made here): the BAM reader over the scale
@@ -96,8 +105,10 @@ Every mode runs through the CLI with the launch counts set to 0 just
 before it and read just after. The kernels JSON line (one record per
 band the main paths run: 15, and 80 for the rescue), the host_native
 JSON line (one record per host function: its seconds, the plain
-version's and the problem size) and the card's name and power limit
-come before the last line, which is {"ok": true, "device": {...}}. Imports nothing of JAX or salmon_tpu. --profile adds
+version's and the problem size), the bench JSON line (the harness's
+record) and the card's name and power limit come before the last line,
+which is {"ok": true, "device": {...}}. Imports nothing of JAX or
+salmon_tpu. --profile adds
 a phase 6: where the time of the paired scale quant goes, by
 quantify's own clocks and a torch.profiler breakdown of a few batches,
 dense and sparse seed flow in turns, the clocks and device busy time of
@@ -449,6 +460,121 @@ def kernel_phase() -> dict:
         if bw in (MAIN_BW, RESCUE_BW):
             records[bw] = rec
     return records
+
+
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "mapped_fraction",
+              "sample_frags_per_s", "human_frags_per_s", "em_iters_per_s",
+              "em_fixture_entries"}
+BENCH_EM_ENTRIES = 964_064
+BENCH_PAIRS = 131072     # the harness's default pairs a timed loop
+BENCH_TIMEOUT = 600
+# the card's EM against the port's CPU run after 100 iterations on the
+# full fixture: both float32, with their own index_add_ order; each is
+# within EM_RTOL / EM_ATOL of a float64 run at 20,000 transcripts
+# (tests/test_torch_bench.py), so they are held to twice that
+BENCH_EM_RTOL, BENCH_EM_ATOL = 2 * EM_RTOL, 2 * EM_ATOL
+
+
+def bench_phase(tmp: str) -> tuple:
+    """`python -m salmon_tpu_torch.bench` in a process of its own, with
+    BENCH_BUILD_HS=0 and an empty cache (no human-scale rate): its JSON
+    line has the JAX harness's nine keys, the fixture's 964,064 entries,
+    positive sample and EM rates, a banded_dp launch on every mapping
+    call, and the mapped fraction of the port's CPU map_paired_batch on
+    one tile of the same batch. Then, in this process: one mapping call
+    of that batch under the profiler names banded_dp_kernel, and the
+    card's EM after 100 iterations on the full fixture agrees with the
+    port's CPU run_em. Returns the harness's record."""
+    import ast
+    import numpy as np
+    import torch
+    from salmon_tpu_torch import bench
+    from salmon_tpu_torch.index.builder import build_index
+    from salmon_tpu_torch.mapping.pipeline import map_paired_batch
+
+    env = dict(os.environ, BENCH_BUILD_HS="0", BENCH_FAST="0",
+               BENCH_PAIRS=str(BENCH_PAIRS), BENCH_BATCH=str(BATCH),
+               BENCH_CACHE=os.path.join(tmp, "bench_cache"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "salmon_tpu_torch.bench"],
+                          env=env, cwd=REPO, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT)
+    sec = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"bench exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    lines = proc.stdout.strip().splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"bench printed {len(lines)} lines: {lines}")
+    rec = json.loads(lines[0])
+    err = proc.stderr.splitlines()
+    for ln in err:
+        if ln.startswith("# "):
+            phase("bench", ln[2:])
+    if set(rec) != BENCH_KEYS:
+        raise AssertionError(f"bench keys {sorted(rec)}")
+    if rec["em_fixture_entries"] != BENCH_EM_ENTRIES:
+        raise AssertionError(f"EM fixture of {rec['em_fixture_entries']} "
+                             f"entries, not {BENCH_EM_ENTRIES}")
+    for key in ("sample_frags_per_s", "em_iters_per_s"):
+        if not (rec[key] or 0) > 0:
+            raise AssertionError(f"bench {key} = {rec[key]}")
+    if rec["human_frags_per_s"] is not None:
+        raise AssertionError("a human-scale rate from an empty cache")
+    launches = ast.literal_eval(next(
+        ln for ln in err if ln.startswith("# banded_dp launches")
+    ).split(": ", 1)[1].split(" over ")[0])
+    calls = 4 + 3 * (BENCH_PAIRS // BATCH)
+    if launches != {MAIN_BW: calls}:
+        raise AssertionError(f"the sample rate's {calls} mapping calls "
+                             f"launched banded_dp {launches}")
+
+    # the mapped fraction of the harness's first tile, on the CPU
+    idx = build_index(os.path.join(DATA, "transcripts.fasta"), k=25)
+    r1, r2 = (os.path.join(DATA, f"reads_{i}.fastq") for i in (1, 2))
+    cpu = torch.device("cpu")
+    cfg, dev, fld, cp, co = bench.mapper_inputs(idx, cpu)
+    out = map_paired_batch(bench._load_reads(r1, r2, BATCH, cpu), dev, cfg,
+                           fld, cp, co)
+    frac = round(float(out["num_mapped"]) / float(out["num_processed"]), 4)
+    if rec["mapped_fraction"] != frac:
+        raise AssertionError(f"bench mapped_fraction {rec['mapped_fraction']}"
+                             f", the CPU map's {frac}")
+
+    # one mapping call of the same batch on the card under the profiler
+    gpu = torch.device("cuda")
+    cfg, dev, fld, cp, co = bench.mapper_inputs(idx, gpu)
+    batch = bench._load_reads(r1, r2, BATCH, gpu)
+    map_paired_batch(batch, dev, cfg, fld, cp, co)
+    _, kernels, _ = device_profile(
+        lambda: map_paired_batch(batch, dev, cfg, fld, cp, co))
+    if not any("banded_dp_kernel" in e.key for e in kernels):
+        raise AssertionError("the profiler names no banded_dp_kernel in a "
+                             "mapping call")
+
+    # the card's EM against the CPU's, 100 iterations on the full fixture
+    eq = bench.em_fixture()
+    t_em = time.perf_counter()
+    card = bench.run_fixture_em(bench.em_args(eq, bench.EM_TXPS, gpu),
+                                bench.EM_TXPS, 100)[0].cpu().double().numpy()
+    t_em = time.perf_counter() - t_em
+    t_cpu = time.perf_counter()
+    host = bench.run_fixture_em(bench.em_args(eq, bench.EM_TXPS, cpu),
+                                bench.EM_TXPS, 100)[0].double().numpy()
+    t_cpu = time.perf_counter() - t_cpu
+    np.testing.assert_allclose(card, host, rtol=BENCH_EM_RTOL,
+                               atol=BENCH_EM_ATOL)
+    diff = np.abs(card - host)
+    phase("bench", f"python -m salmon_tpu_torch.bench: {sec!r} s; nine "
+          f"keys, {BENCH_EM_ENTRIES} EM entries; sample "
+          f"{rec['sample_frags_per_s']!r} frags/s, mapped fraction "
+          f"{rec['mapped_fraction']!r} (the CPU map's), banded_dp "
+          f"launched {launches[MAIN_BW]} times over {calls} calls and named "
+          f"by the profiler; EM {rec['em_iters_per_s']!r} iters/s; card EM "
+          f"(100 iterations, {t_em!r} s with its set-up) within rtol "
+          f"{BENCH_EM_RTOL} / atol {BENCH_EM_ATOL} of the CPU's ({t_cpu!r} "
+          f"s): max |diff| {float(diff.max())!r}")
+    return rec
 
 
 def read_truth(reads_1: str) -> collections.Counter:
@@ -2407,6 +2533,7 @@ def main() -> int:
         return 0
     records = kernel_phase()
     with tempfile.TemporaryDirectory() as tmp:
+        bench_rec = bench_phase(tmp)
         syn = make_scale_set(tmp)
         host, bam = host_native_phase(syn)
         idx = golden_phase(tmp)
@@ -2434,6 +2561,7 @@ def main() -> int:
     print(json.dumps({"kernels": [{k: rec[k] for k in order}
                                   for rec in records.values()]}))
     print(json.dumps({"host_native": host}))
+    print(json.dumps({"bench": bench_rec}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -252,7 +252,9 @@ def build_index(
                                   keep_duplicates, max_occs_kept)
     # OpenMP enumeration + parallel radix sort on the native library;
     # _enumerate_sorted_records is its plain version
+    t0 = time.perf_counter()
     km, tx, po, fw = native_kmers.enumerate_sorted(seq_codes, seq_offsets, k)
+    t1 = time.perf_counter()
     uniq, starts = np.unique(km, return_index=True)
     offsets = np.concatenate([starts.astype(np.int64),
                               np.array([km.shape[0]], dtype=np.int64)])
@@ -272,11 +274,20 @@ def build_index(
     offsets, (tx, po, fw) = oct_align_csr(
         offsets, (tx, po, fw), (np.int32(-1), np.int32(0), False))
     info["occ_oct_aligned"] = True
+    t2 = time.perf_counter()
+    clocks = {"index_enumerate_seconds": t1 - t0,
+              "index_csr_seconds": t2 - t1}
+    # logged before the table too, so that a build cut short there
+    # still tells its earlier stages' seconds
+    logger.info("flat build: enumeration %.3f s, CSR %.3f s; placing %d "
+                "keys", t1 - t0, t2 - t1, uniq.shape[0])
     table = build_hash_table(
         uniq, occ_offsets=offsets, counts=counts_kept,
         filter_counts=true_counts,
         inline_records=(tx, ((po.astype(np.int64) << 1) | fw)
                         .astype(np.int32)))
+    clocks["index_table_seconds"] = time.perf_counter() - t2
+    logger.info("flat build clocks: %s", clocks, extra={"clocks": clocks})
     info["table_inline_singles"] = True
     if table.n_shadowed:
         # fingerprint-shadow merge blocks: append the merged slots'

@@ -28,6 +28,7 @@ the CPU.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import datetime
@@ -195,11 +196,22 @@ def init(coordinator: str, num_procs: int, proc_id: int,
         _warm_up(group, torch.zeros(1, device=device))
     _world = World(rank=proc_id, size=num_procs, device=device,
                    backend=backend, device_group=group)
+    atexit.register(_leave)
     logger.info("process %d/%d on %s; device collectives over %s (%s)",
                 proc_id, num_procs, device, backend,
                 "one GPU per rank" if own_gpu else
                 "ranks share a GPU" if device.type == "cuda" else "CPU")
     return _world
+
+
+def _leave() -> None:
+    """Leave the group at interpreter exit, before finalization: a gloo
+    group left to the finalizer aborts the process now and then
+    (SIGABRT, "terminate called without an active exception") after its
+    work is done, as its threads still run while the interpreter
+    finalizes."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def init_from_env(device=None) -> World | None:

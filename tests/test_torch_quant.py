@@ -164,6 +164,11 @@ assert cli.main(["quant", "-t", FASTA, "-l", "A", "-a", bam, "--dumpEq",
 assert cli.main(["quant", "-e", OUT + "_aln", "-o", OUT, "-q"],
                 device="cpu") == 0
 """),
+    "bench": (90, """
+os.environ.update(BENCH_FAST="1", BENCH_BATCH="64", BENCH_PAIRS="128")
+from salmon_tpu_torch import bench
+assert bench.main([], device="cpu") == 0
+"""),
     "partitioned-tableless": (90, """
 import numpy as np
 from salmon_tpu_torch.index import builder
@@ -190,8 +195,9 @@ def test_port_runs_without_jax(port_index, tmp_path, case):
     one command or short group: index + paired quant, single-end, the
     rescue, bias correction with Gibbs draws, bootstraps, the sparse
     seed flow with the side outputs and quantmerge, alignment mode (-a)
-    with eq-class mode (-e), and the partitioned table-less build with
-    its save/load round trip (which quant refuses without shards)."""
+    with eq-class mode (-e), the partitioned table-less build with
+    its save/load round trip (which quant refuses without shards), and
+    the benchmark harness (salmon_tpu_torch.bench) on the CPU."""
     limit, body = NO_JAX_CASES[case]
     out = str(tmp_path / "quant")
     script = f"""
