@@ -28,8 +28,11 @@ Phases, one line each; any failure raises and exits non-zero:
                BAM, bam_pad_batch and aln_group_eq on its first batch,
                the FASTQ reader on the 200,000 pairs plain and gzipped,
                the flat and partitioned enumerations, table_place,
-               oct_align_pads and gather_rows on the set's k-mers; both
-               times of each
+               oct_align_pads and gather_rows on the set's k-mers, and
+               the bucket table's passes over its placed keys (the
+               first fingerprint match, the row fill, the inlined
+               records) inside build_hash_table at 4 M random keys, the
+               tables equal; both times of each
   4. golden  — `index` + `quant -l IU` of tests/data through the CLI,
                held to tests/data/golden like tests/test_golden.py; then
                single-end `quant -l A -r reads_1.fastq` on the card, held
@@ -94,6 +97,14 @@ Phases, one line each; any failure raises and exits non-zero:
                own (stage seconds, peak RSS), quantified with
                --indexShards 2 (Spearman equal to the single-rank
                sparse run's on the same decoys, with a table)
+     config5 — BASELINE config 5 shard by shard on the one card
+               (salmon_tpu_torch.scripts.demo_config5_quant): that
+               table-less decoy index at 2 and 4 shards over the
+               200,000 pairs, R = 16,384: every pair a fragment,
+               banded_dp once a batch, mapped fraction >= 0.99,
+               NumReads Spearman at the sparse gate; the sample pairs
+               at 2 shards on the golden partitioned index, eq classes
+               equal to the port's CPU run of the module
 With 2 or more GPUs the multi-process runs repeat over NCCL with a GPU
 per process, and at 4 as 2 reads groups of 2 index shards; --multi runs
 only them and the single-rank runs they are held to (not
@@ -106,7 +117,9 @@ before it and read just after. The kernels JSON line (one record per
 band the main paths run: 15, and 80 for the rescue), the host_native
 JSON line (one record per host function: its seconds, the plain
 version's and the problem size), the bench JSON line (the harness's
-record) and the card's name and power limit come before the last line,
+record), the config5 JSON line (each run's report, the device bytes of
+each shard's planes, the seconds of load, B1, B2 and the EM) and the
+card's name and power limit come before the last line,
 which is {"ok": true, "device": {...}}. Imports nothing of JAX or
 salmon_tpu. --profile adds
 a phase 6: where the time of the paired scale quant goes, by
@@ -190,6 +203,13 @@ DECOY_PART_BITS = 6
 # same set and index in the same call (scale_multi_phase holds
 # `sharded2` to `sparse` so too)
 SHARDED_RHO_EQ = 1e-6
+# config5_phase: the shard counts of the shard-by-shard quant on the
+# `sharded2-decoy` index, and its least mapped fraction
+CONFIG5_SHARDS = (2, 4)
+CONFIG5_MIN_MAPPED = 0.99
+# host_native's table-pass records (first_match, table_fill_rows,
+# table_inline): perf_tools/profile_table_build.py's input size
+TABLE_PASS_KEYS = 4_000_000
 
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores, and HBM3 bandwidth
@@ -725,6 +745,79 @@ def _equal(got, want, what: str) -> None:
         raise AssertionError(f"{what}: differs from its plain version")
 
 
+def table_pass_records(n_keys: int = TABLE_PASS_KEYS) -> list:
+    """The bucket table's native passes over the placed keys against
+    their plain versions, inside build_hash_table over
+    perf_tools/profile_table_build.py's input (n_keys random 62-bit keys
+    from seed 0, 1-4 records each) with random records to inline: the
+    first fingerprint match (table_first_match, plain
+    _first_match_numpy), the row fill (table_fill_rows, plain
+    _fill_rows_numpy) and the inlined records (table_inline, plain
+    _inline_numpy). One build takes the native passes, one the plain
+    ones: each pass's seconds in both, both builds' seconds, and the
+    tables (rows, shadow appendix, counts) equal. Returns one
+    host_native record per pass."""
+    import numpy as np
+    from salmon_tpu_torch.index import hashtable, native_kmers
+
+    rng = np.random.default_rng(0)
+    keys = np.unique(rng.integers(0, 1 << 62, n_keys, dtype=np.int64)
+                     .astype(np.uint64))
+    counts = rng.integers(1, 5, keys.size)
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    txp = rng.integers(0, 1 << 18, int(offsets[-1])).astype(np.int32)
+    pf = rng.integers(0, 1 << 24, int(offsets[-1])).astype(np.int32)
+    passes = {"first_match": ("table_first_match", "_first_match_numpy"),
+              "table_fill_rows": ("table_fill_rows", "_fill_rows_numpy"),
+              "table_inline": ("table_inline", "_inline_numpy")}
+    native = {name: getattr(native_kmers, fn)
+              for name, (fn, _) in passes.items()}
+
+    def build(plain: bool):
+        sec = dict.fromkeys(passes, 0.0)
+
+        def timed(name, route):
+            def call(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = route(*args, **kwargs)
+                sec[name] += time.perf_counter() - t0
+                return out
+            return call
+
+        for name, (fn, plain_fn) in passes.items():
+            route = getattr(hashtable, plain_fn) if plain else native[name]
+            setattr(native_kmers, fn, timed(name, route))
+        try:
+            t0 = time.perf_counter()
+            tab = hashtable.build_hash_table(keys, occ_offsets=offsets,
+                                             inline_records=(txp, pf))
+            return tab, sec, time.perf_counter() - t0
+        finally:
+            for name, (fn, _) in passes.items():
+                setattr(native_kmers, fn, native[name])
+
+    tab, sec, build_sec = build(plain=False)
+    want, plain_sec, plain_build_sec = build(plain=True)
+    _equal((tab.rows, tab.appendix), (want.rows, want.appendix),
+           "table passes: tables")
+    assert (tab.n_shadowed, tab.n_evicted, tab.n_inlined) == \
+        (want.n_shadowed, want.n_evicted, want.n_inlined)
+    size = (f"{keys.size} random keys, {tab.n_shadowed} shadowed, "
+            f"{tab.n_inlined} inlined")
+    records = []
+    for name in passes:
+        phase("host", f"{name} ({size}): tables equal to the plain "
+              f"passes'; native {sec[name]!r} s, plain {plain_sec[name]!r}"
+              f" s ({plain_sec[name] / max(sec[name], 1e-9)!r}x)")
+        records.append({"name": name, "seconds": sec[name],
+                        "plain_seconds": plain_sec[name], "size": size,
+                        "build_seconds": build_sec,
+                        "plain_build_seconds": plain_build_sec})
+    phase("host", f"build_hash_table ({size}): {build_sec!r} s with the "
+          f"native passes, {plain_build_sec!r} s with the plain ones")
+    return records
+
+
 def host_native_phase(syn: str) -> tuple:
     """Each function of the port's native host library against its plain
     version on this machine's host, at phase 5's sizes: the BAM reader
@@ -732,8 +825,10 @@ def host_native_phase(syn: str) -> tuple:
     aln_group_eq on its first batch, the FASTQ reader on the 200,000
     pairs plain and gzipped, the flat and 6-bit partitioned enumerations
     of the set's transcripts, table_place and oct_align_pads on its keys,
-    gather_rows of one of 2 shards' records. Returns (one record per
-    function for the host_native line, the BAM's (stats, seconds))."""
+    the table's passes over its placed keys at TABLE_PASS_KEYS random
+    keys (table_pass_records), gather_rows of one of 2 shards' records.
+    Returns (one record per function for the host_native line, the
+    BAM's (stats, seconds))."""
     import gzip
     import shutil
 
@@ -877,6 +972,7 @@ def host_native_phase(syn: str) -> tuple:
     check("oct_align_pads", f"{keys.size} keys",
           lambda: native_kmers.oct_align_pads(counts, 8),
           lambda: _oct_align_pads_py(counts, 8))
+    records += table_pass_records()
     # one of 2 shards' occurrence records, 8 bytes each
     occ = np.stack([tx, (po << 1) | fw], axis=1)
     gidx = np.nonzero(np.repeat(np.arange(keys.size) % 2 == 0, counts))[0]
@@ -2164,7 +2260,7 @@ def golden_partitioned_index(idx: str, tmp: str) -> str:
 
 
 def golden_multi_phase(idx: str, tmp: str, gene_map: str,
-                       sparse: str) -> None:
+                       sparse: str) -> str:
     """The sample pairs in 2 processes: --indexShards 2 (eq classes equal
     to the single-rank sparse card run `sparse`, quant.sf within the
     golden tolerance of it), the same on a table-less copy of the index,
@@ -2176,7 +2272,7 @@ def golden_multi_phase(idx: str, tmp: str, gene_map: str,
     run_em_sharded on the dense run's eq classes against em.optimize
     (iterations equal, alphas within EM_RTOL / EM_ATOL). At 4 GPUs,
     --indexShards 2 on 4 ranks (2 x 2), held like the data-parallel
-    runs."""
+    runs. Returns the partitioned build's table-less index."""
     import dataclasses
     import numpy as np
     from salmon_tpu_torch.index.builder import load_index, save_index
@@ -2259,6 +2355,7 @@ def golden_multi_phase(idx: str, tmp: str, gene_map: str,
                          f"{collective_clocks(recs)}")
             phase("golden", f"{name}, {n} ranks over {backend}: {what}; "
                   f"wall {wall:.1f} s")
+    return ptl
 
 
 def scale_multi_phase(syn: str, rho_sec: dict) -> dict:
@@ -2406,7 +2503,7 @@ def build_index_main(out_json: str, fasta: str, decoy_names: str,
     return 0
 
 
-def scale_decoy_phase(syn: str, sharded: tuple) -> None:
+def scale_decoy_phase(syn: str, sharded: tuple) -> str:
     """`sharded2-decoy`: the scale set's transcripts with DECOY_CHROMS
     random decoy chromosomes last, named in a decoys file as `index -d`
     takes them, indexed by the port's partitioned build in a process of
@@ -2422,7 +2519,8 @@ def scale_decoy_phase(syn: str, sharded: tuple) -> None:
     SHARDED_RHO_EQ of the sparse run's (the sharded seeding is the
     sparse flow's). Its rate, decoy fragments, shard build and hit
     all-gather are printed next to `sharded2`'s (`sharded`: its
-    Spearman, seconds and rank records)."""
+    Spearman, seconds and rank records). Returns the table-less decoy
+    index (config5_phase quantifies it shard by shard)."""
     r1, r2 = (os.path.join(syn, f"reads_{i}.fastq") for i in (1, 2))
     n_batches = math.ceil(SCALE_PAIRS / BATCH)
     truth = read_truth(r1)
@@ -2495,6 +2593,85 @@ def scale_decoy_phase(syn: str, sharded: tuple) -> None:
           f"{rho_sh!r}, so the decoys move it by {rho - rho_sh!r}; gate "
           f"{JAX_SPEARMAN_5K_SPARSE} - 0.01); sharded2 in this call: "
           f"{SCALE_PAIRS / sec_sh!r} frags/s, {collective_clocks(recs_sh)}")
+    return idx
+
+
+def config5_phase(decoy_idx: str, syn: str, golden_idx: str) -> dict:
+    """BASELINE config 5 shard by shard on the one card
+    (salmon_tpu_torch.scripts.demo_config5_quant.quantify, the port's
+    counterpart of scripts/demo_config5_quant.py): the table-less decoy
+    index of `sharded2-decoy` at each of CONFIG5_SHARDS shards over all
+    200,000 pairs, R = 16,384 a batch. Each run: every pair a fragment,
+    banded_dp once a batch (in phase B2, counted from 0 just before the
+    run), mapped fraction >= CONFIG5_MIN_MAPPED, the NumReads (alphas)
+    Spearman against the truth over the transcripts at the JAX
+    package's sparse gate minus 0.01 (the run scores with the uniform
+    FLD, so it is not held to `sharded2-decoy`). Then the sample pairs
+    at 2 shards on the golden partitioned build's table-less index,
+    `golden_idx`, on the card against the port's CPU run of the module:
+    eq classes (labels and counts) equal, alphas within rtol 5e-3 /
+    atol 0.5. Returns the config5 line's record: each run's JSON, the
+    device bytes of each shard's planes, the seconds of load, B1, B2
+    and the EM, launches and Spearman."""
+    import numpy as np
+    from scipy.stats import spearmanr
+    from salmon_tpu_torch.mapping.align import BANDED_DP
+    from salmon_tpu_torch.scripts import demo_config5_quant as demo
+
+    r1, r2 = (os.path.join(syn, f"reads_{i}.fastq") for i in (1, 2))
+    truth = read_truth(r1)
+    with open(os.path.join(decoy_idx, "ref_names.txt")) as fh:
+        names = [ln.rstrip("\n") for ln in fh]
+    with open(os.path.join(decoy_idx, "info.json")) as fh:
+        n_txps = json.load(fh)["first_decoy_index"]
+    want = np.array([truth.get(n, 0) for n in names[:n_txps]])
+    n_batches = math.ceil(SCALE_PAIRS / demo.R)
+    runs = []
+    for n_shards in CONFIG5_SHARDS:
+        BANDED_DP.reset()
+        t0 = time.perf_counter()
+        run = demo.quantify(decoy_idx, r1, r2, n_shards, SCALE_PAIRS,
+                            "cuda")
+        wall = time.perf_counter() - t0
+        launches = dict(BANDED_DP.by_shape)
+        rep = run.report
+        assert rep["n_frags"] == SCALE_PAIRS, rep
+        assert launches == {MAIN_BW: n_batches}, launches
+        assert rep["mapped_frac"] >= CONFIG5_MIN_MAPPED, rep
+        assert np.isfinite(run.alphas).all()
+        assert run.alphas.shape == (len(names),)
+        rho = float(spearmanr(run.alphas[:n_txps], want).statistic)
+        assert rho >= JAX_SPEARMAN_5K_SPARSE - 0.01, (rho, n_shards)
+        runs.append({"report": rep, "seconds": run.seconds,
+                     "wall_seconds": wall, "shard_bytes": run.shard_bytes,
+                     "banded_dp_launches": launches[MAIN_BW],
+                     "spearman": rho})
+        phase("config5", f"{n_shards} shards, shard by shard on the card: "
+              f"{json.dumps(rep)}; load {run.seconds['load_s']!r} s, B1 "
+              f"{run.seconds['b1_s']!r} s, B2 {run.seconds['b2_s']!r} s, "
+              f"EM {run.seconds['em_s']!r} s ({wall!r} s in all); shard "
+              f"planes {run.shard_bytes} bytes; banded_dp {launches} over "
+              f"{n_batches} batches; NumReads Spearman vs truth {rho!r} "
+              f"(gate {JAX_SPEARMAN_5K_SPARSE} - 0.01)")
+
+    reads = [os.path.join(DATA, f"reads_{i}.fastq") for i in (1, 2)]
+    card = demo.quantify(golden_idx, *reads, 2, 20_000, "cuda")
+    cpu = demo.quantify(golden_idx, *reads, 2, 20_000, "cpu")
+    for f in ("labels", "offsets", "counts"):
+        _equal(getattr(card.eq, f), getattr(cpu.eq, f), f"config5 eq {f}")
+    if not np.allclose(card.alphas, cpu.alphas, rtol=5e-3, atol=0.5):
+        raise AssertionError("config5 golden alphas beyond rtol 5e-3 / "
+                             "atol 0.5 of the CPU run")
+    phase("config5", f"golden, 2 shards, sample pairs: "
+          f"{card.report['n_frags']} fragments, {card.eq.num_classes} eq "
+          f"classes (labels and counts) equal to the port's CPU run, "
+          f"alphas within rtol 5e-3 / atol 0.5 (max |diff| "
+          f"{np.abs(card.alphas - cpu.alphas).max()!r}), EM iterations "
+          f"{card.report['em_iters']} and {cpu.report['em_iters']}")
+    return {"runs": runs,
+            "golden": {"n_frags": card.report["n_frags"],
+                       "eq_classes": card.eq.num_classes,
+                       "em_iters": card.report["em_iters"]}}
 
 
 def multi_main() -> None:
@@ -2547,10 +2724,12 @@ def main() -> int:
         golden_quantmerge_phase(
             tmp, *([seed_runs["sparse"][d], seed_runs["rowpool-64"][d],
                     side[d]] for d in (None, "cpu")))
-        golden_multi_phase(idx, tmp, gene_map, seed_runs["sparse"][None])
+        ptl = golden_multi_phase(idx, tmp, gene_map,
+                                 seed_runs["sparse"][None])
         runs, rho_sec = scale_phase(syn, bam=bam)
         multi = scale_multi_phase(syn, rho_sec)
-        scale_decoy_phase(syn, multi["sharded2-gloo"])
+        decoy_idx = scale_decoy_phase(syn, multi["sharded2-gloo"])
+        config5 = config5_phase(decoy_idx, syn, ptl)
         records[MAIN_BW]["launches"] = runs["paired"][MAIN_BW]
         records[RESCUE_BW]["launches"] = runs["recoverOrphans"][RESCUE_BW]
         if "--profile" in sys.argv[1:]:
@@ -2562,6 +2741,7 @@ def main() -> int:
                                   for rec in records.values()]}))
     print(json.dumps({"host_native": host}))
     print(json.dumps({"bench": bench_rec}))
+    print(json.dumps({"config5": config5}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,14 @@
 """Build and load the port's native host library.
 
 The BAM and FASTQ readers, the k-mer enumeration and radix sort, the
-bucket-table placement, the oct-row pads, the row gather and the
-alignment-mode grouping run on the host in C++: `csrc/bamreader.cpp`,
-`csrc/fastqreader.cpp`, `csrc/kmersort.cpp` and `csrc/alnweights.cpp`,
-the port's own copies of the JAX package's sources. At first use g++
-compiles the four into one library, `_build/libsalmonhost-<hash>.so`
-(OpenMP, zlib), where the hash covers the sources and the flags, so an
-edited source is rebuilt and a built one is reused. The library is host
+bucket-table placement and its passes over the placed keys, the oct-row
+pads, the row gather and the alignment-mode grouping run on the host in
+C++: `csrc/bamreader.cpp`, `csrc/fastqreader.cpp`, `csrc/kmersort.cpp`
+and `csrc/alnweights.cpp`, the port's own copies of the JAX package's
+sources. At first use g++ compiles the four into one library,
+`_build/libsalmonhost-<hash>.so` (OpenMP, zlib), where the hash covers
+the sources and the flags, so an edited source is rebuilt and a built
+one is reused. The library is host
 code: the entry points take it on the card's machine and on the CPU
 alike, and a failed compile raises with the compiler's log. Nothing here
 runs at import time.
@@ -85,6 +86,12 @@ SIGNATURES = {
     "oct_align_pads": (None, [_i64p, _I64, _I64, _i64p]),
     "table_place": (_I64, [_u64p, _u32p, _I64, _I64, _i32p]),
     "gather_rows": (None, [_u8p, _i64p, _I64, _I64, _u8p]),
+    "table_slot_ranks": (None, [_i32p, _I64, _i64p]),
+    "table_first_match": (None, [_i32p, _i32p, _i64p, _i64p, _u32p, _I64,
+                                 _i64p, _i64p]),
+    "table_fill_rows": (None, [_i32p, _I64, _i32p, _i32p, _i32p]),
+    "table_inline": (_I64, [_i32p, _I64, _i64p, _i64p, _i32p, _i32p, _i32p,
+                            _I64, _u32p, _i32p]),
 }
 
 

@@ -1,6 +1,11 @@
 // Copied from native/kmersort.cpp of the JAX package (salmon_tpu), unchanged
-// below this comment: the port builds it into its own host library
-// (salmon_tpu_torch/_native.py) and loads nothing under native/.
+// below this comment apart from table_slot_ranks, table_first_match,
+// table_fill_rows and table_inline, which are the port's own, and the
+// k-mer loops' OpenMP schedule (one
+// record a chunk where the original took 64, which put a genome's few
+// long chromosomes, the last records, on one thread): the port builds it
+// into its own host library (salmon_tpu_torch/_native.py) and loads
+// nothing under native/.
 
 // Native index-build hot path: canonical k-mer enumeration + parallel
 // LSD radix sort.
@@ -53,7 +58,7 @@ void oct_align_pads(const int64_t* counts, int64_t n, int64_t cap,
 int64_t kmer_count(const uint8_t* seq, const int64_t* offsets,
                    int64_t n_txps, int32_t k, int64_t* counts) {
   int64_t total = 0;
-#pragma omp parallel for schedule(dynamic, 64) reduction(+ : total)
+#pragma omp parallel for schedule(dynamic, 1) reduction(+ : total)
   for (int64_t t = 0; t < n_txps; ++t) {
     const uint8_t* s = seq + offsets[t];
     const int64_t n = offsets[t + 1] - offsets[t];
@@ -78,7 +83,7 @@ void kmer_enumerate(const uint8_t* seq, const int64_t* offsets,
                     uint64_t* keys, uint64_t* payload) {
   const int shift_hi = 2 * (k - 1);
   const uint64_t mask = (k == 32) ? ~0ull : ((1ull << (2 * k)) - 1);
-#pragma omp parallel for schedule(dynamic, 64)
+#pragma omp parallel for schedule(dynamic, 1)
   for (int64_t t = 0; t < n_txps; ++t) {
     const uint8_t* s = seq + offsets[t];
     const int64_t n = offsets[t + 1] - offsets[t];
@@ -116,7 +121,7 @@ int64_t kmer_count_part(const uint8_t* seq, const int64_t* offsets,
   const uint64_t mask = (k == 32) ? ~0ull : ((1ull << (2 * k)) - 1);
   const int part_shift = 2 * k - part_bits;
   int64_t total = 0;
-#pragma omp parallel for schedule(dynamic, 64) reduction(+ : total)
+#pragma omp parallel for schedule(dynamic, 1) reduction(+ : total)
   for (int64_t t = 0; t < n_txps; ++t) {
     const uint8_t* s = seq + offsets[t];
     const int64_t n = offsets[t + 1] - offsets[t];
@@ -147,7 +152,7 @@ void kmer_enumerate_part(const uint8_t* seq, const int64_t* offsets,
   const int shift_hi = 2 * (k - 1);
   const uint64_t mask = (k == 32) ? ~0ull : ((1ull << (2 * k)) - 1);
   const int part_shift = 2 * k - part_bits;
-#pragma omp parallel for schedule(dynamic, 64)
+#pragma omp parallel for schedule(dynamic, 1)
   for (int64_t t = 0; t < n_txps; ++t) {
     const uint8_t* s = seq + offsets[t];
     const int64_t n = offsets[t + 1] - offsets[t];
@@ -340,6 +345,116 @@ int64_t table_place(const uint64_t* keys, const uint32_t* counts,
     if (!done) ++n_evicted;
   }
   return n_evicted;
+}
+
+// The port's own: ent_base[b] = the number of held slots (slot_key >= 0)
+// in buckets 0..b-1, so that held slot s of bucket b has the row-major
+// rank ent_base[b] + (held slots of b before s) — the order
+// np.nonzero(slot_key >= 0) lists the placed entries in.
+void table_slot_ranks(const int32_t* slot_key, int64_t n_buckets,
+                      int64_t* ent_base) {
+  const int n_thr = omp_get_max_threads();
+  std::vector<int64_t> part(n_thr + 1, 0);
+#pragma omp parallel num_threads(n_thr)
+  {
+    const int t = omp_get_thread_num();
+    const int64_t lo = n_buckets * t / n_thr;
+    const int64_t hi = n_buckets * (t + 1) / n_thr;
+    int64_t run = 0;
+    for (int64_t b = lo; b < hi; ++b) {
+      ent_base[b] = run;
+      for (int s = 0; s < 4; ++s) run += slot_key[b * 4 + s] >= 0;
+    }
+    part[t + 1] = run;
+#pragma omp barrier
+#pragma omp single
+    for (int i = 0; i < n_thr; ++i) part[i + 1] += part[i];
+    for (int64_t b = lo; b < hi; ++b) ent_base[b] += part[t];
+  }
+}
+
+// The port's own: the shadow check of hashtable.build_hash_table. For
+// each query i, the lowest slot s of bucket bq[i] that is held
+// (slot_key >= 0) and whose stored fingerprint (rows[b * 8 + 2 s] >> 16)
+// is fq[i]: slot_out[i] = s and ent_out[i] = the slot's row-major rank
+// among the held slots (ent_base from table_slot_ranks); 8 and -1 where
+// no slot matches. Two 32-byte bucket rows a query, in place of the
+// plain version's binary searches over the sorted held slots.
+void table_first_match(const int32_t* rows, const int32_t* slot_key,
+                       const int64_t* ent_base, const int64_t* bq,
+                       const uint32_t* fq, int64_t n, int64_t* slot_out,
+                       int64_t* ent_out) {
+#pragma omp parallel for schedule(static)
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t b = bq[i];
+    int64_t slot = 8, ent = -1, held = 0;
+    for (int s = 0; s < 4; ++s) {
+      if (slot_key[b * 4 + s] < 0) continue;
+      if ((((uint32_t)rows[b * 8 + 2 * s]) >> 16) == fq[i]) {
+        slot = s;
+        ent = ent_base[b] + held;
+        break;
+      }
+      ++held;
+    }
+    slot_out[i] = slot;
+    ent_out[i] = ent;
+  }
+}
+
+// The port's own: build_hash_table's bucket rows, (fpcnt, start) of the
+// key held in each slot (hashtable._fill_rows_numpy is the plain
+// version). rows (n_buckets * 8) is caller-allocated and zeroed.
+void table_fill_rows(const int32_t* slot_key, int64_t n_buckets,
+                     const int32_t* fpcnt, const int32_t* starts,
+                     int32_t* rows) {
+#pragma omp parallel for schedule(static)
+  for (int64_t b = 0; b < n_buckets; ++b) {
+    for (int s = 0; s < 4; ++s) {
+      const int32_t k = slot_key[b * 4 + s];
+      if (k < 0) continue;
+      rows[b * 8 + 2 * s] = fpcnt[k];
+      rows[b * 8 + 2 * s + 1] = starts[k];
+    }
+  }
+}
+
+// The port's own: build_hash_table's inlined single records
+// (hashtable._inline_numpy is the plain version). A held slot whose
+// count16 is 1 (shadow-merge owners carry block totals), whose key keeps
+// one record and has one in all, with txp in [0, 2^18) and pf in
+// [0, 2^29 - 1), and whose new fpcnt lane is not 0, takes the record
+// itself: fpcnt = fp << 16 | txp >> 2, start = bit 31 | (txp & 3) << 29
+// | pf. otx / opf hold n_rec records; a start past them is not
+// inlined. Returns the number of slots rewritten.
+int64_t table_inline(const int32_t* slot_key, int64_t n_buckets,
+                     const int64_t* counts, const int64_t* pay_counts,
+                     const int32_t* starts, const int32_t* otx,
+                     const int32_t* opf, int64_t n_rec, const uint32_t* fp,
+                     int32_t* rows) {
+  int64_t n_inlined = 0;
+#pragma omp parallel for schedule(static) reduction(+ : n_inlined)
+  for (int64_t b = 0; b < n_buckets; ++b) {
+    for (int s = 0; s < 4; ++s) {
+      const int32_t k = slot_key[b * 4 + s];
+      if (k < 0) continue;
+      const uint32_t cur = (uint32_t)rows[b * 8 + 2 * s] & 0xFFFFu;
+      if (cur != 1 || counts[k] != 1 || pay_counts[k] != 1) continue;
+      const int64_t st = starts[k];
+      if (st < 0 || st >= n_rec) continue;
+      const int64_t txr = otx[st];
+      const int64_t pfr = opf[st];
+      if (txr < 0 || txr >= (1 << 18)) continue;
+      if (pfr < 0 || pfr >= (1 << 29) - 1) continue;
+      const uint32_t fpcnt_new = (fp[k] << 16) | (uint32_t)(txr >> 2);
+      if (fpcnt_new == 0) continue;
+      const uint32_t low31 = ((uint32_t)(txr & 3) << 29) | (uint32_t)pfr;
+      rows[b * 8 + 2 * s] = (int32_t)fpcnt_new;
+      rows[b * 8 + 2 * s + 1] = (int32_t)(0x80000000u | low31);
+      ++n_inlined;
+    }
+  }
+  return n_inlined;
 }
 
 // Parallel fixed-width row gather: dst[i] = src[idx[i]] for row_bytes-

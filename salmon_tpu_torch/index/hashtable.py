@@ -53,9 +53,13 @@ want a branch-free, fixed-gather lookup. Design:
   true hits are never lost (up to the downstream occ_cap gather
   truncation, which prefers the resident's records).
 
-Build cost is a few argsorts over the unique k-mers — O(n log n) numpy
-vector ops only. Half the HBM of the previous 2-slot-row linear-probe
-layout at equal key count (312M-kmer human transcriptome: ~4.3 GB).
+Build cost: the placement's radix sorts, then a few O(n) passes over the
+placed keys (bucket rows, each key's first fingerprint match in its two
+buckets, inlined records), all on the native library and, for the
+shadow check, in bucket chunks, so that no per-key temporary spans a
+genome-scale table. Half the HBM of the previous 2-slot-row
+linear-probe layout at equal key count (312M-kmer human transcriptome:
+~4.3 GB).
 """
 
 from __future__ import annotations
@@ -248,6 +252,108 @@ def _place_keys_numpy(b1: np.ndarray, b2: np.ndarray, counts: np.ndarray,
     return slot_key, n_evicted
 
 
+def _first_match_numpy(rows: np.ndarray, slot_key: np.ndarray,
+                       fp_q: np.ndarray, *buckets: np.ndarray,
+                       ent_base=None) -> list:
+    """For each array of query buckets, (probe slot, placed-entry id) of
+    the minimal-slot stored fingerprint match of each query in its
+    bucket, or (8, -1): two binary searches a query over the held slots
+    sorted by (bucket, fingerprint, slot). The plain version of
+    native_kmers.table_first_match, equal to it element for element
+    (`ent_base`, the native route's slot ranks, is not needed here)."""
+    pbucket, pslot = np.nonzero(slot_key >= 0)
+    fp_s = (rows[pbucket, 2 * pslot].view(np.uint32)
+            >> np.uint32(16)).astype(np.uint64)
+    packed = ((pbucket.astype(np.uint64) << np.uint64(20))
+              | (fp_s << np.uint64(4)) | pslot.astype(np.uint64))
+    order = np.argsort(packed)
+    packed_s = packed[order]
+    out = []
+    for bucket_q in buckets:
+        base = ((np.asarray(bucket_q).astype(np.uint64) << np.uint64(20))
+                | (np.asarray(fp_q).astype(np.uint64) << np.uint64(4)))
+        j = np.searchsorted(packed_s, base, side="left")
+        j_end = np.searchsorted(packed_s, base + np.uint64(16),
+                                side="left")
+        hasm = j < j_end
+        if not packed_s.size:
+            out.append((np.full(j.shape, 2 * SLOTS_PER_BUCKET, np.int64),
+                        np.full(j.shape, -1, np.int64)))
+            continue
+        jc = np.minimum(j, packed_s.shape[0] - 1)
+        slot_q = np.where(
+            hasm, (packed_s[jc] & np.uint64(15)).astype(np.int64),
+            2 * SLOTS_PER_BUCKET)
+        out.append((slot_q, np.where(hasm, order[jc], -1)))
+    return out
+
+
+# buckets a chunk of build_hash_table's passes over the placed keys
+_CHUNK_BUCKETS = 1 << 20
+
+
+def _placed_chunks(slot_key: np.ndarray):
+    """(bucket, slot, key index, first placed-entry id) of the held
+    slots, in chunks of _CHUNK_BUCKETS buckets, row-major: entry ids
+    follow np.nonzero(slot_key >= 0)."""
+    chunk = _CHUNK_BUCKETS
+    ent0 = 0
+    for b0 in range(0, slot_key.shape[0], chunk):
+        sk = slot_key[b0:b0 + chunk]
+        pbucket, pslot = np.nonzero(sk >= 0)
+        pk = sk[pbucket, pslot].astype(np.int64)
+        yield pbucket + b0, pslot, pk, ent0
+        ent0 += pbucket.shape[0]
+
+
+def _fill_rows_numpy(slot_key: np.ndarray, fpcnt: np.ndarray,
+                     starts: np.ndarray) -> np.ndarray:
+    """(fpcnt, start) of the key held in each slot as (n_buckets, 8)
+    int32 rows. The plain version of native_kmers.table_fill_rows."""
+    rows = np.zeros((slot_key.shape[0], 2 * SLOTS_PER_BUCKET), np.int32)
+    for pbucket, pslot, pk, _ in _placed_chunks(slot_key):
+        rows[pbucket, 2 * pslot] = fpcnt[pk]
+        rows[pbucket, 2 * pslot + 1] = starts[pk]
+    return rows
+
+
+def _inline_numpy(rows: np.ndarray, slot_key: np.ndarray,
+                  counts: np.ndarray, pay_counts: np.ndarray,
+                  starts: np.ndarray, otx: np.ndarray, opf: np.ndarray,
+                  fp: np.ndarray) -> int:
+    """Slots of single-record keys rewritten in `rows` to hold the
+    record (build_hash_table's inline_records); returns how many. The
+    plain version of native_kmers.table_inline."""
+    otx, opf = np.asarray(otx), np.asarray(opf)
+    n_inlined = 0
+    for pbucket, pslot, pk, _ in _placed_chunks(slot_key):
+        # current count16 per placed slot: shadow-merge owners were
+        # rewritten to block totals (>= 3), so requiring exactly 1
+        # excludes them automatically
+        cur_cnt = (rows[pbucket, 2 * pslot].view(np.uint32)
+                   & np.uint32(0xFFFF))
+        cand = ((cur_cnt == 1) & (counts[pk] == 1)
+                & (pay_counts[pk] == 1))
+        st = starts[pk].astype(np.int64)
+        cand &= st < otx.shape[0]
+        st = np.where(cand, st, 0)
+        txr = otx[st].astype(np.int64)
+        pfr = opf[st].astype(np.int64)
+        cand &= (txr >= 0) & (txr < (1 << 18))
+        cand &= (pfr >= 0) & (pfr < (1 << 29) - 1)
+        payload_hi = (txr >> 2).astype(np.uint32)       # txp bits 2..17
+        low31 = (((txr & 3).astype(np.uint32) << np.uint32(29))
+                 | pfr.astype(np.uint32))
+        fpcnt_new = (fp[pk] << np.uint32(16)) | payload_hi
+        cand &= fpcnt_new != 0          # would read as an empty slot
+        w = np.nonzero(cand)[0]
+        rows[pbucket[w], 2 * pslot[w]] = fpcnt_new[w].view(np.int32)
+        rows[pbucket[w], 2 * pslot[w] + 1] = (
+            np.uint32(0x80000000) | low31[w]).view(np.int32)
+        n_inlined += int(w.shape[0])
+    return n_inlined
+
+
 def table_n_slots(n_keys: int, load_factor: float = 0.5,
                   max_load_factor: float = 0.62) -> int:
     """Power-of-two slot count for `n_keys`: targets `load_factor` but
@@ -306,8 +412,6 @@ def build_hash_table(keys_u64: np.ndarray,
     n_buckets = h // SLOTS_PER_BUCKET
     hi, lo = split_u64(keys_u64)
     mask = np.uint32(n_buckets - 1)
-    b1 = (mix32(hi, lo) & mask).astype(np.int64)
-    b2 = (mix32b(hi, lo) & mask).astype(np.int64)
     fp = fingerprint16(hi, lo)
 
     if occ_offsets is None:
@@ -338,123 +442,85 @@ def build_hash_table(keys_u64: np.ndarray,
 
     counts16 = np.minimum(pay_counts, 0xFFFF).astype(np.uint32)
     fpcnt = ((fp << np.uint32(16)) | counts16).view(np.int32)
+    del counts16
 
-    rows = np.zeros((n_buckets, 2 * SLOTS_PER_BUCKET), dtype=np.int32)
-    pbucket, pslot = np.nonzero(slot_key >= 0)
-    pk = slot_key[pbucket, pslot]
-    rows[pbucket, 2 * pslot] = fpcnt[pk]
-    rows[pbucket, 2 * pslot + 1] = starts[pk]
+    # the bucket rows on the native library (_fill_rows_numpy is the
+    # plain version)
+    rows = native_kmers.table_fill_rows(slot_key, fpcnt, starts)
 
     # ---- fingerprint-shadow resolution (see module docstring) ----------
-    # placed keys, their slot coordinates, and their probe position
-    appendix = np.zeros((0, 3), np.int64)
-    n_shadowed = 0
-    if pk.size:
-        own_pos = pslot + np.where(pbucket == b1[pk], 0, SLOTS_PER_BUCKET)
-        # join structure: placed slots sorted by (bucket, fp, slot)
-        packed = ((pbucket.astype(np.uint64) << np.uint64(20))
-                  | (fp[pk].astype(np.uint64) << np.uint64(4))
-                  | pslot.astype(np.uint64))
-        order = np.argsort(packed)
-        packed_s = packed[order]
-
-        def first_match(bucket_q, key_idx):
-            """(probe slot, placed-entry id) of the minimal-slot stored
-            fp match in bucket_q for each query key; slot=16 if none."""
-            base = ((bucket_q.astype(np.uint64) << np.uint64(20))
-                    | (fp[key_idx].astype(np.uint64) << np.uint64(4)))
-            j = np.searchsorted(packed_s, base, side="left")
-            j_end = np.searchsorted(packed_s, base + np.uint64(16),
-                                    side="left")
-            hasm = j < j_end
-            jc = np.minimum(j, packed_s.shape[0] - 1)
-            slot_q = np.where(
-                hasm, (packed_s[jc] & np.uint64(15)).astype(np.int64),
-                2 * SLOTS_PER_BUCKET)
-            return slot_q, np.where(hasm, order[jc], -1)
-
-        s1q, e1q = first_match(b1[pk], pk)
-        s2q, e2q = first_match(b2[pk], pk)
+    # per shadowed key: its placed entry and key, and its owner's placed
+    # entry, bucket and slot
+    found = [[] for _ in range(5)]
+    ent_base = native_kmers.table_slot_ranks(slot_key)
+    for pbucket, pslot, pk, ent0 in _placed_chunks(slot_key):
+        b1 = (mix32(hi[pk], lo[pk]) & mask).astype(np.int64)
+        b2 = (mix32b(hi[pk], lo[pk]) & mask).astype(np.int64)
+        own_pos = pslot + np.where(pbucket == b1, 0, SLOTS_PER_BUCKET)
+        # the first stored fp match of each placed key in each of its
+        # buckets, on the native library (_first_match_numpy is its
+        # plain version)
+        (s1q, e1q), (s2q, e2q) = native_kmers.table_first_match(
+            rows, slot_key, fp[pk], b1, b2, ent_base=ent_base)
         pos2 = np.where(s2q < 2 * SLOTS_PER_BUCKET,
                         s2q + SLOTS_PER_BUCKET, 2 * SLOTS_PER_BUCKET)
         take1 = s1q <= pos2
-        fpos = np.where(take1, s1q, pos2)
-        fent = np.where(take1, e1q, e2q)
-        shadowed = fpos < own_pos
-        n_shadowed = int(shadowed.sum())
-        if n_shadowed:
-            fp30 = fingerprint30(hi, lo)
-            sh = np.nonzero(shadowed)[0]          # placed-entry indices
-            own_ent = fent[sh]                    # owner placed entry
-            # group shadowed keys by owner entry, residents first
-            grp = np.argsort(own_ent, kind="stable")
-            own_sorted = own_ent[grp]
-            sh_sorted = sh[grp]
-            gstart = np.ones(own_sorted.shape[0], bool)
-            gstart[1:] = own_sorted[1:] != own_sorted[:-1]
-            owners = own_sorted[gstart]           # unique owner entries
-            # appendix segments: per owner block, a separator record
-            # (carrying the segment key's 30-bit fingerprint) + the
-            # key's range — resident first, then each shadowed key in
-            # deterministic (key) order
-            blk_of = np.cumsum(gstart) - 1
-            res_keys = pk[owners]
-            blk_total = (counts[res_keys] + np.bincount(
-                blk_of, weights=counts[pk[sh_sorted]].astype(np.float64),
-                minlength=owners.shape[0]).astype(np.int64)
-                + 1 + np.bincount(blk_of, minlength=owners.shape[0]))
-            n_seg = owners.shape[0] + sh_sorted.shape[0]
-            seg_src = np.empty(n_seg, np.int64)
-            seg_len = np.empty_like(seg_src)
-            seg_fp = np.empty_like(seg_src)
-            w = 0
-            blk_start = np.empty(owners.shape[0], np.int64)
-            base_off = int(occ_offsets[-1]) if occ_offsets is not None \
-                else n
-            run = base_off
-            for g in range(owners.shape[0]):
-                blk_start[g] = run
-                for key in [res_keys[g]] + sorted(
-                        pk[sh_sorted[blk_of == g]].tolist()):
-                    seg_src[w] = starts[key]
-                    seg_len[w] = counts[key]
-                    seg_fp[w] = fp30[key]
-                    w += 1
-                run += int(blk_total[g])
-            appendix = np.stack([seg_src, seg_len, seg_fp], axis=1)
-            # rewrite the owner slots to the merged blocks
-            ob = pbucket[owners]
-            os_ = pslot[owners]
-            mcnt = np.minimum(blk_total, 0xFFFF).astype(np.uint32)
-            rows[ob, 2 * os_] = ((fp[res_keys] << np.uint32(16))
-                                 | mcnt).view(np.int32)
-            rows[ob, 2 * os_ + 1] = blk_start.astype(np.int32)
+        sh = np.nonzero(np.where(take1, s1q, pos2) < own_pos)[0]
+        t1 = take1[sh]
+        for out, part in zip(found, (
+                sh + ent0, pk[sh], np.where(t1, e1q[sh], e2q[sh]),
+                np.where(t1, b1[sh], b2[sh]),
+                np.where(t1, s1q[sh], s2q[sh]))):
+            out.append(part)
+    sh_ent, sh_key, own_ent, own_b, own_s = (
+        np.concatenate(part) if part else np.zeros(0, np.int64)
+        for part in found)
+    n_shadowed = int(sh_ent.shape[0])
+    appendix = np.zeros((0, 3), np.int64)
+    if n_shadowed:
+        # group shadowed keys by owner entry, residents first
+        grp = np.argsort(own_ent, kind="stable")
+        own_sorted = own_ent[grp]
+        sh_keys = sh_key[grp].astype(np.int64)
+        gstart = np.ones(own_sorted.shape[0], bool)
+        gstart[1:] = own_sorted[1:] != own_sorted[:-1]
+        ob, os_ = own_b[grp][gstart], own_s[grp][gstart]
+        res_keys = slot_key[ob, os_].astype(np.int64)
+        # appendix segments: per owner block, a separator record
+        # (carrying the segment key's 30-bit fingerprint) + the key's
+        # range — resident first, then each shadowed key in
+        # deterministic (key) order
+        blk_of = np.cumsum(gstart) - 1
+        n_blk = res_keys.shape[0]
+        blk_total = (counts[res_keys] + np.bincount(
+            blk_of, weights=counts[sh_keys].astype(np.float64),
+            minlength=n_blk).astype(np.int64)
+            + 1 + np.bincount(blk_of, minlength=n_blk))
+        bounds = np.concatenate([np.nonzero(gstart)[0],
+                                 [sh_keys.shape[0]]])
+        seg_key = np.concatenate([
+            np.concatenate([[res_keys[g]],
+                            np.sort(sh_keys[bounds[g]:bounds[g + 1]])])
+            for g in range(n_blk)]).astype(np.int64)
+        appendix = np.stack([
+            starts[seg_key].astype(np.int64), counts[seg_key],
+            fingerprint30(hi[seg_key], lo[seg_key]).astype(np.int64)],
+            axis=1)
+        base_off = int(occ_offsets[-1]) if occ_offsets is not None \
+            else n
+        blk_start = base_off + np.concatenate(
+            [[0], np.cumsum(blk_total)[:-1]]).astype(np.int64)
+        # rewrite the owner slots to the merged blocks
+        mcnt = np.minimum(blk_total, 0xFFFF).astype(np.uint32)
+        rows[ob, 2 * os_] = ((fp[res_keys] << np.uint32(16))
+                             | mcnt).view(np.int32)
+        rows[ob, 2 * os_ + 1] = blk_start.astype(np.int32)
 
     n_inlined = 0
-    if inline_records is not None and pk.size:
-        otx, opf = inline_records
-        # current count16 per placed slot: shadow-merge owners were
-        # rewritten to block totals (>= 3), so requiring exactly 1
-        # excludes them automatically
-        cur_cnt = (rows[pbucket, 2 * pslot].view(np.uint32)
-                   & np.uint32(0xFFFF))
-        cand = ((cur_cnt == 1) & (counts[pk] == 1)
-                & (pay_counts[pk] == 1))
-        st = starts[pk].astype(np.int64)
-        txr = np.asarray(otx)[st].astype(np.int64)
-        pfr = np.asarray(opf)[st].astype(np.int64)
-        cand &= (txr >= 0) & (txr < (1 << 18))
-        cand &= (pfr >= 0) & (pfr < (1 << 29) - 1)
-        payload_hi = (txr >> 2).astype(np.uint32)       # txp bits 2..17
-        low31 = (((txr & 3).astype(np.uint32) << np.uint32(29))
-                 | pfr.astype(np.uint32))
-        fpcnt_new = (fp[pk] << np.uint32(16)) | payload_hi
-        cand &= fpcnt_new != 0          # would read as an empty slot
-        w = np.nonzero(cand)[0]
-        rows[pbucket[w], 2 * pslot[w]] = fpcnt_new[w].view(np.int32)
-        rows[pbucket[w], 2 * pslot[w] + 1] = (
-            np.uint32(0x80000000) | low31[w]).view(np.int32)
-        n_inlined = int(w.shape[0])
+    if inline_records is not None:
+        # on the native library (_inline_numpy is the plain version)
+        n_inlined = native_kmers.table_inline(
+            rows, slot_key, counts, pay_counts, starts, *inline_records, fp)
 
     return KmerHashTable(rows, h, 2 * SLOTS_PER_BUCKET, n_evicted,
                          appendix=appendix, n_shadowed=n_shadowed,

@@ -1,12 +1,14 @@
 """The index build's host hot paths on the port's native library
 (`csrc/kmersort.cpp` through `_native.py`): canonical k-mer enumeration
 with a parallel radix sort, flat or per partition of the canonical top
-bits, the two-choice bucket placement, the oct-row pads and a parallel
-row gather.
+bits, the two-choice bucket placement with the table's passes over the
+placed keys (bucket rows, the shadow check's first fingerprint match,
+inlined records), the oct-row pads and a parallel row gather.
 
 Counterpart of salmon_tpu/index/native_kmers.py. The plain versions,
 which the tests hold these to, are numpy: `builder._enumerate_sorted_
 records`, `kmer_enum`, `hashtable._place_keys_numpy`,
+`hashtable._first_match_numpy`, `_fill_rows_numpy`, `_inline_numpy`,
 `diskfmt._oct_align_pads_py` and fancy indexing.
 """
 
@@ -111,6 +113,76 @@ def table_place(keys_u64: np.ndarray, counts: np.ndarray,
         keys, np.ascontiguousarray(counts, np.uint32), keys.shape[0],
         n_buckets, slot_key))
     return slot_key.reshape(n_buckets, 4), n_evicted
+
+
+def table_slot_ranks(slot_key: np.ndarray) -> np.ndarray:
+    """Per bucket, the held slots (slot_key >= 0) of the buckets before
+    it: the first placed-entry id of each bucket."""
+    slot_key = np.ascontiguousarray(slot_key, np.int32)
+    ent_base = np.empty(slot_key.shape[0], np.int64)
+    _native.lib().table_slot_ranks(slot_key, slot_key.shape[0], ent_base)
+    return ent_base
+
+
+def table_first_match(rows: np.ndarray, slot_key: np.ndarray,
+                      fp_q: np.ndarray, *buckets: np.ndarray,
+                      ent_base: np.ndarray | None = None) -> list:
+    """For each array of query buckets, (probe slot, placed-entry id) of
+    the lowest held slot of the query's bucket whose stored fingerprint
+    is the query's (fp_q), or (8, -1); the placed-entry id is the slot's
+    rank in np.nonzero(slot_key >= 0) order. ent_base:
+    table_slot_ranks(slot_key), for a caller that queries one table in
+    several calls. hashtable._first_match_numpy is the plain version."""
+    lib = _native.lib()
+    rows = np.ascontiguousarray(rows, np.int32)
+    slot_key = np.ascontiguousarray(slot_key, np.int32)
+    if ent_base is None:
+        ent_base = table_slot_ranks(slot_key)
+    fq = np.ascontiguousarray(fp_q, np.uint32)
+    out = []
+    for bq in buckets:
+        bq = np.ascontiguousarray(bq, np.int64)
+        if bq.size and (int(bq.min()) < 0
+                        or int(bq.max()) >= slot_key.shape[0]):
+            raise IndexError("table_first_match: a bucket is out of range")
+        slot = np.empty(bq.shape[0], np.int64)
+        ent = np.empty(bq.shape[0], np.int64)
+        lib.table_first_match(rows, slot_key, ent_base, bq, fq,
+                              bq.shape[0], slot, ent)
+        out.append((slot, ent))
+    return out
+
+
+def table_fill_rows(slot_key: np.ndarray, fpcnt: np.ndarray,
+                    starts: np.ndarray) -> np.ndarray:
+    """The table's (n_buckets, 8) int32 bucket rows: (fpcnt, start) of
+    the key held in each slot, zeros in empty slots.
+    hashtable._fill_rows_numpy is the plain version."""
+    slot_key = np.ascontiguousarray(slot_key, np.int32)
+    rows = np.zeros((slot_key.shape[0], 8), np.int32)
+    _native.lib().table_fill_rows(
+        slot_key, slot_key.shape[0], np.ascontiguousarray(fpcnt, np.int32),
+        np.ascontiguousarray(starts, np.int32), rows)
+    return rows
+
+
+def table_inline(rows: np.ndarray, slot_key: np.ndarray,
+                 counts: np.ndarray, pay_counts: np.ndarray,
+                 starts: np.ndarray, otx: np.ndarray, opf: np.ndarray,
+                 fp: np.ndarray) -> int:
+    """Rewrite in `rows` the slots of single-record keys to hold the
+    record itself (hashtable.build_hash_table's inline_records); returns
+    how many. hashtable._inline_numpy is the plain version."""
+    if rows.dtype != np.int32 or not rows.flags.c_contiguous:
+        raise ValueError("table_inline: rows must be C-contiguous int32")
+    slot_key = np.ascontiguousarray(slot_key, np.int32)
+    otx = np.ascontiguousarray(otx, np.int32)
+    return int(_native.lib().table_inline(
+        slot_key, slot_key.shape[0], np.ascontiguousarray(counts, np.int64),
+        np.ascontiguousarray(pay_counts, np.int64),
+        np.ascontiguousarray(starts, np.int32), otx,
+        np.ascontiguousarray(opf, np.int32), otx.shape[0],
+        np.ascontiguousarray(fp, np.uint32), rows))
 
 
 def gather_rows(src: np.ndarray, idx: np.ndarray) -> np.ndarray:

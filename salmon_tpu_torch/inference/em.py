@@ -13,7 +13,9 @@ convergence test runs on the host. Below ROUTED_MIN_ENTRIES it runs
 after every iteration, as the reference checks every iteration; from
 ROUTED_MIN_ENTRIES on it runs after each chunk of EM_CHUNK iterations,
 as the JAX package's routed engine does, so that both stop after the
-same number of iterations.
+same number of iterations. run_em's `chunked` picks the rule at any
+size, for callers of the routed engine whatever the size (the
+shard-serial quant of scripts/demo_config5_quant.py).
 """
 
 from __future__ import annotations
@@ -59,12 +61,15 @@ def run_em(labels: torch.Tensor, seg: torch.Tensor, counts: torch.Tensor,
            alpha0: torch.Tensor, prior: torch.Tensor,
            eff_lens: torch.Tensor, num_txps: int, use_vbem: bool,
            tol: float, min_iter: int, max_iter: int,
-           alpha_cutoff: float = DEFAULTS.alpha_check_cutoff):
+           alpha_cutoff: float = DEFAULTS.alpha_check_cutoff,
+           chunked: Optional[bool] = None):
     """The optimization loop.
 
     labels/seg/aux: (E,) per-entry transcript, class and aux weight;
-    counts/class_sizes: (Cl,) per class. Returns (alpha, n_iters,
-    max_rel_diff, n_degenerate, available)."""
+    counts/class_sizes: (Cl,) per class. chunked: test convergence after
+    each chunk of EM_CHUNK iterations (the routed engine's rule) or after
+    every iteration; None picks by size (ROUTED_MIN_ENTRIES). Returns
+    (alpha, n_iters, max_rel_diff, n_degenerate, available)."""
     n_cl = counts.shape[0]
     # combinedWeights (reference optimize :830-873): count * aux /
     # effLen, normalized within each class
@@ -114,7 +119,9 @@ def run_em(labels: torch.Tensor, seg: torch.Tensor, counts: torch.Tensor,
     alpha = alpha0
     it = 0
     mrd = float("inf")
-    if labels.shape[0] >= ROUTED_MIN_ENTRIES:
+    if chunked is None:
+        chunked = labels.shape[0] >= ROUTED_MIN_ENTRIES
+    if chunked:
         # chunked stopping rule: the relative difference of each chunk's
         # last iteration, read after the chunk
         while it < max_iter:

@@ -162,3 +162,38 @@ def test_initial_and_prior_alphas_match():
             jem.prior_alphas(50, eff, 1e-2, per_txp))
     assert dataclasses.asdict(tem.EMConfig()) == \
         dataclasses.asdict(jem.EMConfig())
+
+
+@pytest.mark.parametrize("vbem,tol", [(False, 1e-3), (True, 1e-8)],
+                         ids=["em", "vbem"])
+def test_chunked_rule_below_threshold_matches_routed_engine(vbem, tol):
+    """run_em(chunked=True) takes the routed engine's stopping rule under
+    65,536 entries too, as the shard-serial quant asks of it: the same
+    iteration count as fastem.optimize_routed, which the JAX config-5
+    demo calls at every size, and alphas within 1e-4."""
+    from salmon_tpu.inference import fastem
+
+    jeq, teq, eff, _ = random_eq(5, 400, 3000, 6)
+    assert jeq.labels.shape[0] < jem.ROUTED_MIN_ENTRIES
+    a0 = jem.initial_alphas(400, None, jeq.num_fragments)
+    pri = jem.prior_alphas(400, eff, 1e-2, True)
+    want = fastem.optimize_routed(jeq, 400, eff, a0, pri, vbem, tol, 50,
+                                  1000)
+    seg = np.repeat(np.arange(teq.num_classes), teq.class_sizes)
+
+    def put(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype)
+
+    f32, i64 = torch.float32, torch.int64
+    args = (put(teq.labels, i64), put(seg, i64), put(teq.counts, f32),
+            put(teq.weights, f32), put(teq.class_sizes, i64),
+            put(a0, f32), put(pri, f32), put(eff, f32), 400, vbem, tol,
+            50, 1000, 1e-2)
+    alpha, iters, _, n_degen, _ = tem.run_em(*args, chunked=True)
+    assert iters == want["iterations"]
+    assert iters % tem.EM_CHUNK == 0 or iters == 1000
+    assert n_degen == want["num_degenerate_classes"]
+    np.testing.assert_allclose(alpha.numpy(), want["alphas"], rtol=1e-4,
+                               atol=1e-4)
+    # by size, the same entries take the per-iteration rule
+    assert tem.run_em(*args)[1] != iters

@@ -233,10 +233,14 @@ def test_no_jax_imports_in_the_port():
             dirs.remove("_build")     # build output, not the package
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
-    # the multi-process modules included
+    # the multi-process modules and the config-5 / human-scale scripts
+    # included
+    ported_scripts = ("scripts/__init__.py", "scripts/demo_config5_quant.py",
+               "scripts/build_genome_scale_index.py",
+               "scripts/check_hs_accuracy.py", "scripts/eval_hs_accuracy.py")
     for mod in ("parallel/distributed.py", "parallel/quant_step.py",
                 "parallel/sharded.py", "parallel/em.py", "parallel/launch.py",
-                "index/shard.py", "index/kmer_enum.py"):
+                "index/shard.py", "index/kmer_enum.py", *ported_scripts):
         assert os.path.join(REPO, "salmon_tpu_torch", mod) in files, mod
     # nor does it load, build or name the JAX package's native library
     # (the port builds its own from salmon_tpu_torch/csrc), or read the
@@ -249,6 +253,14 @@ def test_no_jax_imports_in_the_port():
             bad += [f"{path}:{i}: {ln.strip()}"
                     for i, ln in enumerate(fh, 1)
                     if pattern.match(ln) or native.search(ln)]
+    # the scripts start no process of the JAX package either (its CLI
+    # or a module of it run with -m)
+    jax_prog = re.compile(r"[\"']salmon_tpu(\.[a-z_.]+)?[\"']")
+    for mod in ported_scripts:
+        path = os.path.join(REPO, "salmon_tpu_torch", mod)
+        with open(path) as fh:
+            bad += [f"{path}:{i}: {ln.strip()}"
+                    for i, ln in enumerate(fh, 1) if jax_prog.search(ln)]
     assert not bad, bad
     from salmon_tpu_torch import _native
     assert _native.CSRC == os.path.join(REPO, "salmon_tpu_torch", "csrc")
