@@ -105,6 +105,32 @@ Phases, one line each; any failure raises and exits non-zero:
                NumReads Spearman at the sparse gate; the sample pairs
                at 2 shards on the golden partitioned index, eq classes
                equal to the port's CPU run of the module
+     harness — the port's throughput harnesses on phase 5's set and
+               index, each in processes of its own on the card:
+               quant_window for 300 s with --progressUpdateMs 0 (exit 0,
+               not timed out, all 200,000 pairs counted as
+               meta_info.json counts them), then cut short (timed out,
+               some but not all pairs counted; its window half that
+               run's elapsed seconds, then bisected, at most 6 runs, as
+               start-up varies by seconds); bench_multihost --procs 1,2
+               --devices-per-proc 0 (2 processes share the card; 200,000
+               fragments at each count, the report's keys and each
+               rank's clocks; the efficiency recorded, not gated);
+               bench_alignment_mode 10
+               (both rates positive, quant.sf's NumReads summing to the
+               100,000 fragments within 1 %)
+     sims    — every truth simulation at its script's default size: the
+               mixed simulation (seed 123, 30,000 pairs; mapping rate,
+               TPM and counts Spearman >= 0.999, family median relative
+               error <= 0.05) and the paralog simulation at the defaults
+               (mapping >= 0.995, Spearman(all) >= 0.69, family 0 >=
+               0.9, family total error <= 0.01, repeat error <= 0.15),
+               the pins of tests/test_accuracy_gate.py; sim_seqbias,
+               sim_gcbias and sim_posbias, each mean |log TPM err|
+               within 5 % (or 0.003) of the JAX package's CPU value and
+               each gain of its sign; sim_rescue_recall, each recall
+               within 2 of 48 of the JAX package's, banded_dp at band 80
+               once a run
 With 2 or more GPUs the multi-process runs repeat over NCCL with a GPU
 per process, and at 4 as 2 reads groups of 2 index shards; --multi runs
 only them and the single-rank runs they are held to (not
@@ -118,8 +144,11 @@ band the main paths run: 15, and 80 for the rescue), the host_native
 JSON line (one record per host function: its seconds, the plain
 version's and the problem size), the bench JSON line (the harness's
 record), the config5 JSON line (each run's report, the device bytes of
-each shard's planes, the seconds of load, B1, B2 and the EM) and the
-card's name and power limit come before the last line,
+each shard's planes, the seconds of load, B1, B2 and the EM), the
+harness JSON line (each harness's record and seconds), the sims JSON
+line (each metric beside its gate or the JAX package's value, the
+banded_dp launches and seconds of each simulation) and the card's name
+and power limit come before the last line,
 which is {"ok": true, "device": {...}}. Imports nothing of JAX or
 salmon_tpu. --profile adds
 a phase 6: where the time of the paired scale quant goes, by
@@ -207,6 +236,42 @@ SHARDED_RHO_EQ = 1e-6
 # `sharded2-decoy` index, and its least mapped fraction
 CONFIG5_SHARDS = (2, 4)
 CONFIG5_MIN_MAPPED = 0.99
+# harness_phase: quant_window's full window (seconds) on the scale set,
+# with a progress line after every batch; bench_alignment_mode's REPS
+# (100,000 fragments); a -a quant.sf's NumReads within this share of the
+# fragments
+QW_SECONDS = 300
+QW_CUT_TRIES = 6        # windows bisected for the cut run (harness_phase)
+ABENCH_REPS = 10
+ABENCH_SUM_RTOL = 0.01
+# sims_phase: the truth simulations at their scripts' default sizes. The
+# JAX package's values on the CPU, as the unchanged scripts print them
+# (JAX_PLATFORMS=cpu python scripts/sim_seqbias.py, and so sim_gcbias.py,
+# sim_posbias.py, sim_rescue_recall.py): mean |log TPM err| uncorrected,
+# then corrected (--posBias, then --posBiasCorrected), each held within
+# SIM_ERR_RTOL (or SIM_ERR_ATOL, the larger) with each gain's sign; and
+# rescued of 48 at each (sigma, probes), the oracle's too, within
+# RECALL_SLACK (the orphan tie, ROADMAP queue 3)
+JAX_SEQBIAS_ERR = (0.0719, 0.0294)
+JAX_GCBIAS_ERR = (0.6762, 0.4786)
+JAX_POSBIAS_ERR = (0.0563, 0.0878, 0.0517)
+SIM_ERR_RTOL, SIM_ERR_ATOL = 0.05, 0.003
+JAX_RESCUE_RECALL = {
+    (25.0, 1): 46, (25.0, 3): 46, (25.0, 5): 46, (25.0, "oracle"): 45,
+    (80.0, 1): 30, (80.0, 3): 46, (80.0, 5): 46, (80.0, "oracle"): 45,
+    (160.0, 1): 16, (160.0, 3): 43, (160.0, 5): 44, (160.0, "oracle"): 45}
+RECALL_SLACK = 2
+# the accuracy gates' pins (tests/test_accuracy_gate.py, the JAX
+# package's; tests/test_torch_accuracy_gate.py holds the port to them on
+# the CPU): the mixed simulation (seed 123, 30,000 pairs) and the
+# paralog simulation at the defaults
+MIXED_PAIRS = 30_000
+MIXED_MIN = {"mapping_rate": 0.999, "tpm_spearman": 0.999,
+             "counts_spearman": 0.999}
+MIXED_FAMILY_MEDIAN_RELERR = 0.05
+PARALOG_MIN = {"mapping_rate": 0.995, "spearman_all": 0.69,
+               "fam0_spearman": 0.9}
+PARALOG_MAX = {"fam_total_relerr_max": 0.01, "rep_relerr_max": 0.15}
 # host_native's table-pass records (first_match, table_fill_rows,
 # table_inline): perf_tools/profile_table_build.py's input size
 TABLE_PASS_KEYS = 4_000_000
@@ -2674,6 +2739,322 @@ def config5_phase(decoy_idx: str, syn: str, golden_idx: str) -> dict:
                        "em_iters": card.report["em_iters"]}}
 
 
+def _quant_window(argv: list, out_json: str) -> dict:
+    """salmon_tpu_torch.scripts.quant_window with `argv`: its record."""
+    from salmon_tpu_torch.scripts import quant_window
+    assert quant_window.main(["--json-out", out_json, *argv]) == 0
+    with open(out_json) as fh:
+        return json.load(fh)
+
+
+def harness_phase(syn: str) -> dict:
+    """The port's throughput harnesses on phase 5's set and index (built
+    by scale_phase), each with its default command on the card:
+    quant_window for QW_SECONDS with --progressUpdateMs 0 (exit 0, not
+    timed out, every pair counted, as meta_info.json counts them), then
+    cut short (timed out, some but not all pairs counted), its window
+    half the first run's elapsed seconds, then bisected between 0 and
+    those seconds, at most QW_CUT_TRIES runs (half can end inside the
+    process's start-up);
+    bench_multihost at 1 and 2 processes, a GPU a rank (its --procs 1,2
+    --devices-per-proc 0: 2 processes share the card; every pair a
+    fragment at each count, the report's keys; efficiency_vs_1
+    recorded, not gated); and
+    bench_alignment_mode's BAM at ABENCH_REPS (both rates positive,
+    quant.sf's NumReads summing to the fragments within
+    ABENCH_SUM_RTOL). Returns the harness line's record."""
+    from salmon_tpu_torch.scripts import bench_alignment_mode, bench_multihost
+
+    idx = os.path.join(syn, "idx")
+    r1, r2 = (os.path.join(syn, f"reads_{i}.fastq") for i in (1, 2))
+    pairs = ["--index", idx, "-1", r1, "-2", r2]
+    out = os.path.join(syn, "qw_full")
+    t0 = time.perf_counter()
+    full = _quant_window([*pairs, "--seconds", str(QW_SECONDS), "--out-dir",
+                          out, "--", "--progressUpdateMs", "0"],
+                         os.path.join(syn, "qw_full.json"))
+    full_sec = time.perf_counter() - t0
+    with open(os.path.join(out, "aux_info", "meta_info.json")) as fh:
+        num_processed = json.load(fh)["num_processed"]
+    assert full["exit_code"] == 0 and not full["timed_out"], full
+    assert full["processed_fragments"] == SCALE_PAIRS == num_processed, \
+        (full, num_processed)
+    # the cut run: half the first run's elapsed seconds, as the harness's
+    # own check takes it; but on the card most of a run is start-up,
+    # which varies by seconds from one run to the next, and the loop
+    # lasts ~3 s, so the window is bisected between 0 and the first
+    # run's elapsed seconds until a run is cut inside its loop
+    lo, hi = 0.0, full["elapsed_seconds"]
+    window = hi / 2
+    tries = []
+    t0 = time.perf_counter()
+    for i in range(QW_CUT_TRIES):
+        cut = _quant_window([*pairs, "--seconds", f"{window:.3f}",
+                             "--out-dir", os.path.join(syn, f"qw_cut{i}"),
+                             "--", "--progressUpdateMs", "0"],
+                            os.path.join(syn, f"qw_cut{i}.json"))
+        n = cut["processed_fragments"]
+        tries.append({"seconds": window, "processed_fragments": n,
+                      "timed_out": cut["timed_out"]})
+        if cut["timed_out"] and 0 < n < SCALE_PAIRS:
+            break
+        lo, hi = (window, hi) if n == 0 else (lo, window)
+        window = (lo + hi) / 2
+    cut_sec = time.perf_counter() - t0
+    assert cut["timed_out"], tries
+    assert 0 < cut["processed_fragments"] < SCALE_PAIRS, tries
+    phase("harness", f"quant_window {QW_SECONDS} s: "
+          f"{full['processed_fragments']} fragments in "
+          f"{full['elapsed_seconds']!r} s = "
+          f"{full['fragments_per_second']!r} frags/s, exit 0; cut: "
+          f"timed out at {cut['processed_fragments']} fragments = "
+          f"{cut['fragments_per_second']!r} frags/s; windows tried "
+          f"{json.dumps(tries)}")
+
+    t0 = time.perf_counter()
+    results = bench_multihost.measure([1, 2], 0, idx, r1, r2,
+                                      tempfile.mkdtemp(dir=syn, prefix="mh_"))
+    mh_sec = time.perf_counter() - t0
+    report = bench_multihost.report(results, 0)
+    frags = {r["procs"]: r["frags"] for r in results}
+    assert set(report) == {"metric", "devices_per_proc", "virtual_cpu_mesh",
+                           "procs", "frags_per_s", "wall_s",
+                           "efficiency_vs_1", "note", "rank_clocks"}, report
+    assert report["procs"] == [1, 2] and not report["virtual_cpu_mesh"]
+    assert frags == {1: SCALE_PAIRS, 2: SCALE_PAIRS}, frags
+    for n, clocks in zip(report["procs"], report["rank_clocks"]):
+        for k in ("index_load_seconds", "read_seconds", "map_seconds",
+                  "em_seconds") + (("eq_allgather_seconds",) if n > 1
+                                   else ()):
+            assert len(clocks.get(k, ())) == n, (n, k, clocks)
+    phase("harness", f"bench_multihost, 1 and 2 processes on the one "
+          f"card: {json.dumps(report)} (efficiency recorded, not gated: "
+          f"the processes share a card)")
+
+    t0 = time.perf_counter()
+    abench = bench_alignment_mode.bench(
+        ABENCH_REPS, tempfile.mkdtemp(dir=syn, prefix="abench_"), "cuda")
+    ab_sec = time.perf_counter() - t0
+    line = {"metric": "alignment-mode frags/s", "value": abench["value"],
+            "reader_rec_per_s": abench["reader_rec_per_s"]}
+    assert abench["value"] > 0 and abench["reader_rec_per_s"] > 0, line
+    with open(os.path.join(abench["out"], "quant.sf")) as fh:
+        n_reads = sum(r[2] for r in _parse_sf(fh.readlines()).values())
+    n = abench["n_frags"]
+    assert abs(n_reads - n) <= ABENCH_SUM_RTOL * n, (n_reads, n)
+    phase("harness", f"bench_alignment_mode {ABENCH_REPS}: {n} fragments, "
+          f"{abench['n_records']} records: {json.dumps(line)}; quant.sf "
+          f"NumReads sum {n_reads!r}")
+    return {"quant_window": {"full": full, "full_seconds": full_sec,
+                             "cut": cut, "cut_tries": tries,
+                             "cut_seconds": cut_sec},
+            "bench_multihost": {"report": report, "frags": frags,
+                                "seconds": mh_sec},
+            "bench_alignment_mode": {"line": line, "n_frags": n,
+                                     "numreads_sum": n_reads,
+                                     "seconds": ab_sec}}
+
+
+def mixed_sim(d: str) -> dict:
+    """tests/test_accuracy_gate.py's mixed simulation (seed 123,
+    MIXED_PAIRS pairs of 100 bases): 280 unique transcripts and 10
+    two-isoform families with a shared 5' block, written byte for byte
+    as that fixture writes them (tests/test_torch_accuracy_gate.py holds
+    it so) into d; the files' paths, the truth counts and the names."""
+    import numpy as np
+    from salmon_tpu_torch.utils.dna import decode_seq, revcomp_codes
+
+    read_len, err = 100, 0.005
+    rng = np.random.default_rng(123)
+    seqs = []
+    for _ in range(280):
+        seqs.append(rng.integers(
+            0, 4, int(rng.integers(500, 3000))).astype(np.uint8))
+    for _ in range(10):
+        shared = rng.integers(
+            0, 4, int(rng.integers(400, 900))).astype(np.uint8)
+        for _i in range(2):
+            uniq = rng.integers(
+                0, 4, int(rng.integers(500, 900))).astype(np.uint8)
+            seqs.append(np.concatenate([shared, uniq]))
+    names = [f"TX{i:04d}" for i in range(len(seqs))]
+    fa = os.path.join(d, "t.fa")
+    with open(fa, "w") as fh:
+        for nm, s in zip(names, seqs):
+            fh.write(f">{nm}\n{decode_seq(s)}\n")
+    expr = rng.gamma(0.5, 1.0, len(seqs))
+    expr[rng.random(len(seqs)) < 0.15] = 0.0
+    lens = np.array([s.shape[0] for s in seqs], float)
+    w = expr * np.maximum(lens - 250, 1)
+    p = w / w.sum()
+    truth = np.zeros(len(seqs))
+    r1p, r2p = os.path.join(d, "r1.fq"), os.path.join(d, "r2.fq")
+    with open(r1p, "w") as f1, open(r2p, "w") as f2:
+        for i in range(MIXED_PAIRS):
+            t = int(rng.choice(len(seqs), p=p))
+            L = seqs[t].shape[0]
+            fl = int(np.clip(rng.normal(250, 25), 2 * read_len, L))
+            fl = min(fl, L)
+            s0 = int(rng.integers(0, L - fl + 1))
+            truth[t] += 1
+            left = seqs[t][s0:s0 + read_len].copy()
+            right = revcomp_codes(
+                seqs[t][s0 + fl - read_len:s0 + fl]).copy()
+            for r in (left, right):
+                m = rng.random(read_len) < err
+                r[m] = (r[m] + rng.integers(1, 4, m.sum())) % 4
+            f1.write(f"@s{i}\n{decode_seq(left)}\n+\n{'I' * read_len}\n")
+            f2.write(f"@s{i}\n{decode_seq(right)}\n+\n"
+                     f"{'I' * read_len}\n")
+    return {"fa": fa, "r1": r1p, "r2": r2p, "truth": truth, "names": names}
+
+
+def mixed_metrics(sim: dict, res) -> dict:
+    """The mixed gate's metrics of a quant result (the port's
+    QuantResult) against the simulation's truth: mapping rate, TPM
+    Spearman (truth TPM from the truth counts over the run's effective
+    lengths), counts Spearman, and the median relative count error of
+    the isoform families' members with >= 30 true fragments."""
+    import numpy as np
+    from scipy.stats import spearmanr
+
+    names, truth = sim["names"], sim["truth"]
+    est = dict(zip(res.names, res.counts))
+    e = np.array([est.get(nm, 0.0) for nm in names])
+    eff = dict(zip(res.names, res.eff_lens))
+    el = np.array([max(eff.get(nm, 1.0), 1.0) for nm in names])
+    t_tpm = truth / el
+    t_tpm = t_tpm / t_tpm.sum() * 1e6
+    tpm = dict(zip(res.names, res.tpm))
+    e_tpm = np.array([tpm.get(nm, 0.0) for nm in names])
+    fam = np.arange(280, 300)
+    ft, fe = truth[fam], e[fam]
+    good = ft >= 30
+    return {"mapping_rate": res.num_mapped / res.num_processed,
+            "tpm_spearman": float(spearmanr(t_tpm, e_tpm).statistic),
+            "counts_spearman": float(spearmanr(truth, e).statistic),
+            "family_median_relerr": float(np.median(
+                np.abs(fe[good] - ft[good]) / ft[good]))}
+
+
+def _err_close(got: float, want: float) -> bool:
+    return abs(got - want) <= max(SIM_ERR_RTOL * abs(want), SIM_ERR_ATOL)
+
+
+def sims_phase(tmp: str) -> dict:
+    """Every truth simulation at its script's default size, on the card,
+    with the banded_dp launches of each counted from 0 just before it:
+    the mixed simulation and the paralog simulation (at the defaults)
+    held to the accuracy gates' pins; sim_seqbias, sim_gcbias and
+    sim_posbias, each error within SIM_ERR_RTOL (or SIM_ERR_ATOL) of the
+    JAX package's CPU value and each gain of its sign; sim_rescue_recall,
+    each recall within RECALL_SLACK of the JAX package's, band 80 once a
+    run. Returns the sims line's record: each metric beside its gate or
+    JAX value, launches and seconds."""
+    import numpy as np
+    from salmon_tpu_torch.index.builder import build_index
+    from salmon_tpu_torch.mapping.align import BANDED_DP
+    from salmon_tpu_torch.quant import quantify
+    from salmon_tpu_torch.scripts import (sim_gcbias, sim_paralog_gate,
+                                          sim_posbias, sim_rescue_recall,
+                                          sim_seqbias)
+
+    rec = {}
+
+    def run(name, fn):
+        d = os.path.join(tmp, f"sim_{name}")
+        os.makedirs(d)
+        BANDED_DP.reset()
+        t0 = time.perf_counter()
+        out = fn(d)
+        rec[name] = {"seconds": time.perf_counter() - t0,
+                     "banded_dp_launches": dict(BANDED_DP.by_shape)}
+        return out
+
+    def mixed(d):
+        sim = mixed_sim(d)
+        res = quantify(build_index(sim["fa"], k=31), "IU", [sim["r1"]],
+                       [sim["r2"]], progress=False, device="cuda")
+        return mixed_metrics(sim, res), res.num_batches
+
+    m, n_batches = run("mixed", mixed)
+    for k, lo in MIXED_MIN.items():
+        assert m[k] >= lo, (k, m)
+    assert m["family_median_relerr"] <= MIXED_FAMILY_MEDIAN_RELERR, m
+    assert rec["mixed"]["banded_dp_launches"] == {MAIN_BW: n_batches}, rec
+    rec["mixed"].update({"metrics": m, "min": MIXED_MIN, "max": {
+        "family_median_relerr": MIXED_FAMILY_MEDIAN_RELERR}})
+    phase("sims", f"mixed ({MIXED_PAIRS} pairs): {json.dumps(m)} (gates "
+          f"{json.dumps(MIXED_MIN)}, family median rel err <= "
+          f"{MIXED_FAMILY_MEDIAN_RELERR}); banded_dp "
+          f"{rec['mixed']['banded_dp_launches']}")
+
+    def paralog(d):
+        sim = sim_paralog_gate.build_sim(d)
+        m, res = sim_paralog_gate.run_setting(build_index(sim["fa"], k=31),
+                                              sim, 8, 16, "cuda")
+        return m, res.num_batches
+
+    m, n_batches = run("paralog", paralog)
+    got = {"mapping_rate": m["mapping_rate"],
+           "spearman_all": m["spearman_all"],
+           "fam0_spearman": m["fam_member_spearman"][0],
+           "fam_total_relerr_max": m["fam_total_relerr_max"],
+           "rep_relerr_max": m["rep_relerr_max"]}
+    for k, lo in PARALOG_MIN.items():
+        assert got[k] >= lo, (k, m)
+    for k, hi in PARALOG_MAX.items():
+        assert got[k] <= hi, (k, m)
+    assert rec["paralog"]["banded_dp_launches"] == {MAIN_BW: n_batches}, rec
+    rec["paralog"].update({"metrics": m, "min": PARALOG_MIN,
+                           "max": PARALOG_MAX})
+    phase("sims", f"paralog gate (occ_cap 8, weight_width 16, "
+          f"{sim_paralog_gate.N_PAIRS} pairs): {json.dumps(got)}; member "
+          f"Spearman by family {m['fam_member_spearman']} (gates "
+          f"{json.dumps(PARALOG_MIN)} at least, {json.dumps(PARALOG_MAX)} "
+          f"at most); banded_dp {rec['paralog']['banded_dp_launches']}")
+
+    for name, mod, n_txps, n_frags, want in (
+            ("seqbias", sim_seqbias, 48, 80000, JAX_SEQBIAS_ERR),
+            ("gcbias", sim_gcbias, 48, 60000, JAX_GCBIAS_ERR),
+            ("posbias", sim_posbias, 24, 20000, JAX_POSBIAS_ERR)):
+        errs = run(name, lambda d: mod.errors(d, n_txps, n_frags, "cuda"))
+        gains = [sim_seqbias.gain(errs[0], e) for e in errs[1:]]
+        want_gains = [sim_seqbias.gain(want[0], e) for e in want[1:]]
+        for got_e, want_e in zip(errs, want):
+            assert np.isfinite(got_e) and _err_close(got_e, want_e), \
+                (name, errs, want)
+        for g, w in zip(gains, want_gains):
+            assert np.sign(g) == np.sign(w), (name, gains, want_gains)
+        rec[name].update({"errors": errs, "gains_percent": gains,
+                          "jax_errors": list(want),
+                          "jax_gains_percent": want_gains})
+        phase("sims", f"sim_{name} ({n_txps} txps, {n_frags} fragments): "
+              f"mean |log TPM err| {errs} (JAX package on the CPU "
+              f"{list(want)}), gains {gains} % (JAX {want_gains} %); "
+              f"banded_dp {rec[name]['banded_dp_launches']}")
+
+    recalls = run("rescue_recall", lambda d: sim_rescue_recall.recalls(
+        "cuda"))
+    n_runs = len(sim_rescue_recall.SIGMAS) * (len(sim_rescue_recall.PROBES)
+                                              + sim_rescue_recall.N)
+    for key, (r, n) in recalls.items():
+        assert n == sim_rescue_recall.N, (key, n)
+        assert abs(r - JAX_RESCUE_RECALL[key]) <= RECALL_SLACK, \
+            (key, r, JAX_RESCUE_RECALL[key])
+    launches = rec["rescue_recall"]["banded_dp_launches"]
+    assert launches == {MAIN_BW: n_runs, RESCUE_BW: n_runs}, launches
+    rec["rescue_recall"]["recall"] = [
+        {"sigma": s, "probes": q, "rescued": r, "of": n,
+         "jax": JAX_RESCUE_RECALL[s, q]} for (s, q), (r, n) in
+        recalls.items()]
+    phase("sims", f"sim_rescue_recall: " + "; ".join(
+        f"sigma {s:g} probes {q}: {r}/{n} (JAX {JAX_RESCUE_RECALL[s, q]})"
+        for (s, q), (r, n) in recalls.items())
+        + f"; banded_dp {launches} over {n_runs} map_paired_batch calls")
+    return rec
+
+
 def multi_main() -> None:
     """--multi: the multi-process phases alone, with the single-rank runs
     they are held to (the golden dense and sparse runs, the scale set's
@@ -2730,6 +3111,8 @@ def main() -> int:
         multi = scale_multi_phase(syn, rho_sec)
         decoy_idx = scale_decoy_phase(syn, multi["sharded2-gloo"])
         config5 = config5_phase(decoy_idx, syn, ptl)
+        harness = harness_phase(syn)
+        sims = sims_phase(tmp)
         records[MAIN_BW]["launches"] = runs["paired"][MAIN_BW]
         records[RESCUE_BW]["launches"] = runs["recoverOrphans"][RESCUE_BW]
         if "--profile" in sys.argv[1:]:
@@ -2742,6 +3125,8 @@ def main() -> int:
     print(json.dumps({"host_native": host}))
     print(json.dumps({"bench": bench_rec}))
     print(json.dumps({"config5": config5}))
+    print(json.dumps({"harness": harness}))
+    print(json.dumps({"sims": sims}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,6 +29,7 @@ import json
 import logging
 import os
 import sys
+import time
 
 from salmon_tpu_torch import __version__
 from salmon_tpu_torch.constants import SalmonDefaults
@@ -486,7 +487,11 @@ def cmd_quant(args, device=None) -> int:
                                         quantify, write_outputs)
 
     opts = _opts_from_args(args)
+    t_load = time.perf_counter()
     index = load_index(args.index)
+    load_clock = {"index_load_seconds": time.perf_counter() - t_load}
+    logger.info("index load clocks (s): %s", load_clock,
+                extra={"clocks": load_clock})
     unmapped_path = orphan_links_path = None
     aux = os.path.join(args.output, args.auxDir)
     # each process of a launch writes its own fragments' side outputs

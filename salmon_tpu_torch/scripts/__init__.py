@@ -1,15 +1,34 @@
-"""The port's scripts at genome-decoy and human scale, the counterparts
-of the repository's scripts/ (BASELINE config 5 and the human-scale
-accuracy checks):
+"""The port's drivers, the counterparts of the repository's scripts/.
+
+BASELINE config 5 and the human-scale accuracy checks:
 
     python -m salmon_tpu_torch.scripts.build_genome_scale_index [decoy_gb]
     python -m salmon_tpu_torch.scripts.demo_config5_quant [n_shards] [max_frags]
     python -m salmon_tpu_torch.scripts.check_hs_accuracy [n_batches]
     python -m salmon_tpu_torch.scripts.eval_hs_accuracy [out_dir]
 
+The throughput harnesses:
+
+    python -m salmon_tpu_torch.scripts.quant_window --index IDX -1 R1 -2 R2 ...
+    python -m salmon_tpu_torch.scripts.bench_multihost [--procs 1,2,4] ...
+    python -m salmon_tpu_torch.scripts.bench_alignment_mode [REPS]
+
+The truth simulations:
+
+    python -m salmon_tpu_torch.scripts.sim_seqbias
+    python -m salmon_tpu_torch.scripts.sim_gcbias
+    python -m salmon_tpu_torch.scripts.sim_posbias
+    python -m salmon_tpu_torch.scripts.sim_paralog_gate [occ_cap=N ...]
+    python -m salmon_tpu_torch.scripts.sim_rescue_recall
+
 Each takes the argv, environment variables and printed keys of its
-counterpart, runs on the GPU, and has main(argv=None, device="cuda"),
-which the tests call with device="cpu".
+counterpart and runs on the GPU. Those that run the port in their own
+process have main(argv=None, device="cuda"), which the tests call with
+device="cpu"; the simulations write their data byte for byte as their
+counterparts do, from the same seeds. quant_window and bench_multihost
+start the port's CLI in subprocesses: quant_window's --salmon names
+another command, and bench_multihost's --devices-per-proc N > 0 runs
+CPU ranks.
 """
 
 from __future__ import annotations

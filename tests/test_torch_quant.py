@@ -233,11 +233,15 @@ def test_no_jax_imports_in_the_port():
             dirs.remove("_build")     # build output, not the package
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
-    # the multi-process modules and the config-5 / human-scale scripts
-    # included
+    # the multi-process modules and the scripts (config 5, human scale,
+    # the throughput harnesses, the truth simulations) included
     ported_scripts = ("scripts/__init__.py", "scripts/demo_config5_quant.py",
                "scripts/build_genome_scale_index.py",
-               "scripts/check_hs_accuracy.py", "scripts/eval_hs_accuracy.py")
+               "scripts/check_hs_accuracy.py", "scripts/eval_hs_accuracy.py",
+               "scripts/quant_window.py", "scripts/bench_multihost.py",
+               "scripts/bench_alignment_mode.py", "scripts/sim_seqbias.py",
+               "scripts/sim_gcbias.py", "scripts/sim_posbias.py",
+               "scripts/sim_paralog_gate.py", "scripts/sim_rescue_recall.py")
     for mod in ("parallel/distributed.py", "parallel/quant_step.py",
                 "parallel/sharded.py", "parallel/em.py", "parallel/launch.py",
                 "index/shard.py", "index/kmer_enum.py", *ported_scripts):
