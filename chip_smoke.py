@@ -96,7 +96,22 @@ Phases, one line each; any failure raises and exits non-zero:
                port's partitioned build (6 bits) in a process of its
                own (stage seconds, peak RSS), quantified with
                --indexShards 2 (Spearman equal to the single-rank
-               sparse run's on the same decoys, with a table)
+               sparse run's on the same decoys, with a table). Every
+               mapping mode runs map_paired_batch / map_single_batch
+               through their CUDA graphs (one per batch signature): each
+               mode's line has the graph cache's counters (a batch
+               eager or replayed, never both), its eq_accumulate and
+               consume seconds a batch and its peak reserved memory
+     graph   — the compiled batch step against the eager one on phase
+               5's set and index (scripts/bench_graph_step.py): 8
+               batches of R = 4,096 in each of paired, single-end,
+               rescue and sparse through map_*_batch_impl and through
+               the graph; every output key bit-equal (txp_mass, a float
+               index_add_, within rtol 1e-5), banded_dp launched as
+               often, one capture and 7 replays a mode, the profiler
+               naming banded_dp_kernel in the replays; wall, device busy,
+               host-issued launches and device ops a batch both ways,
+               the capture's seconds and pool bytes
      config5 — BASELINE config 5 shard by shard on the one card
                (salmon_tpu_torch.scripts.demo_config5_quant): that
                table-less decoy index at 2 and 4 shards over the
@@ -147,8 +162,9 @@ record), the config5 JSON line (each run's report, the device bytes of
 each shard's planes, the seconds of load, B1, B2 and the EM), the
 harness JSON line (each harness's record and seconds), the sims JSON
 line (each metric beside its gate or the JAX package's value, the
-banded_dp launches and seconds of each simulation) and the card's name
-and power limit come before the last line,
+banded_dp launches and seconds of each simulation), the graph JSON line
+(each mode's record of the graph phase) and the card's name and power
+limit come before the last line,
 which is {"ok": true, "device": {...}}. Imports nothing of JAX or
 salmon_tpu. --profile adds
 a phase 6: where the time of the paired scale quant goes, by
@@ -1103,10 +1119,14 @@ def run_quant(argv: list, device=None, env=None) -> tuple[dict, float,
     os.environ.update(env or {})
     try:
         BANDED_DP.reset()
+        if device is None:
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         assert cli.main(["quant", *argv, "-q"], device=device) == 0
         if device is None:
             torch.cuda.synchronize()
+            clocks.clocks["max_memory_reserved"] = \
+                torch.cuda.max_memory_reserved()
         sec = time.perf_counter() - t0
     finally:
         log.removeHandler(clocks)
@@ -1825,9 +1845,23 @@ def scale_phase(syn: str, only=None, bam=None) -> tuple:
         rate = "" if mode == "eqclass" else f" = {SCALE_PAIRS / sec!r} {unit}/s"
         if "map_seconds" in clocks:
             n = clocks["mapped_batches"]
+            # every batch ran eagerly (a signature's first) or replayed
+            # its signature's graph
+            assert clocks["graph_eager"] + clocks["graph_replays"] == n, \
+                (mode, clocks)
             extra += (f"; map_seconds {clocks['map_seconds'] / n!r} s a "
-                      f"batch, of it read_seconds "
-                      f"{clocks['read_seconds'] / n!r}")
+                      f"batch (the loop's {clocks['map_loop_seconds'] / n!r}"
+                      f"), of it read_seconds "
+                      f"{clocks['read_seconds'] / n!r}, eq_accumulate_seconds "
+                      f"{clocks['eq_accumulate_seconds'] / n!r}, "
+                      f"consume_seconds {clocks['consume_seconds'] / n!r}; "
+                      f"batch step graphs: {clocks['graph_signatures']} "
+                      f"signatures, {clocks['graph_eager']} eager, "
+                      f"{clocks['graph_captures']} captured in "
+                      f"{clocks['graph_capture_seconds']!r} s, "
+                      f"{clocks['graph_replays']} replayed, pool "
+                      f"{clocks['graph_pool_bytes']} bytes; peak reserved "
+                      f"{clocks['max_memory_reserved']} bytes")
         phase("scale", f"{mode}: quant {sec!r} s{rate}; mapped "
               f"{meta['percent_mapped']!r}%; banded_dp "
               f"launches {launches} for {n_batches} batches; NumReads "
@@ -1836,6 +1870,49 @@ def scale_phase(syn: str, only=None, bam=None) -> tuple:
         runs[mode] = launches
         rho_sec[mode] = (rho, sec)
     return runs, rho_sec
+
+
+GRAPH_BATCHES = 8      # batches a mode in the graph phase
+
+
+def graph_phase(syn: str) -> list:
+    """The compiled batch step against the eager one on phase 5's set and
+    index (salmon_tpu_torch.scripts.bench_graph_step): GRAPH_BATCHES
+    batches of R = BATCH in each of paired, single-end, rescue and
+    sparse through map_*_batch_impl and through map_*_batch's CUDA
+    graph; outputs bit-equal (txp_mass within rtol 1e-5, its float
+    atomic adds' order), banded_dp counted alike, one capture and
+    GRAPH_BATCHES - 1 replays a mode. Returns the records: wall, device
+    busy and host-issued launches a batch, both ways, and the capture's
+    seconds and pool bytes."""
+    from salmon_tpu_torch.index.builder import load_index
+    from salmon_tpu_torch.scripts import bench_graph_step
+
+    index = load_index(os.path.join(syn, "idx"))
+    r1, r2 = (os.path.join(syn, f"reads_{i}.fastq") for i in (1, 2))
+    t0 = time.perf_counter()
+    recs = bench_graph_step.run(index, r1, r2, GRAPH_BATCHES, BATCH)
+    for rec in recs:
+        e, g = rec["eager"], rec["graph"]
+        if not g["banded_dp_kernels"] > 0:
+            raise AssertionError(f"graph {rec['mode']}: the profiler names "
+                                 f"no banded_dp_kernel in the replays")
+        phase("graph", f"{rec['mode']} ({rec['signature']}, "
+              f"{rec['batches']} batches): {rec['bit_equal_keys']} of "
+              f"{rec['output_keys']} keys bit-equal, txp_mass max |diff| "
+              f"{rec['max_abs_diff']['txp_mass']!r} (eager against eager "
+              f"{rec['max_abs_diff']['txp_mass_eager_rerun']!r}); banded_dp "
+              f"{rec['banded_dp']} both ways; {rec['counters']}; a batch: "
+              f"wall {e['wall_ms']!r} -> {g['wall_ms']!r} ms, device busy "
+              f"{e['busy_ms']!r} -> {g['busy_ms']!r} ms, host-issued "
+              f"launches {e['host_launches']!r} -> {g['host_launches']!r}, "
+              f"device ops {e['device_ops']!r} -> {g['device_ops']!r}; "
+              f"capture {g['capture_seconds']!r} s, pool "
+              f"{g['pool_bytes']} bytes, an output set "
+              f"{g['output_set_bytes']} bytes, reserved "
+              f"{rec['memory_reserved']} bytes")
+    phase("graph", f"{time.perf_counter() - t0:.1f} s")
+    return recs
 
 
 def sam_fragments(path: str) -> tuple:
@@ -3108,6 +3185,7 @@ def main() -> int:
         ptl = golden_multi_phase(idx, tmp, gene_map,
                                  seed_runs["sparse"][None])
         runs, rho_sec = scale_phase(syn, bam=bam)
+        graph = graph_phase(syn)
         multi = scale_multi_phase(syn, rho_sec)
         decoy_idx = scale_decoy_phase(syn, multi["sharded2-gloo"])
         config5 = config5_phase(decoy_idx, syn, ptl)
@@ -3127,6 +3205,7 @@ def main() -> int:
     print(json.dumps({"config5": config5}))
     print(json.dumps({"harness": harness}))
     print(json.dumps({"sims": sims}))
+    print(json.dumps({"graph": graph}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,10 +29,13 @@ import os
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from salmon_tpu_torch.constants import DEFAULTS, SalmonDefaults
 from salmon_tpu_torch.index.builder import TranscriptomeIndex
-from salmon_tpu_torch.mapping.align import banded_scores_indexed, pack_seq4
+from salmon_tpu_torch.mapping.align import (BANDED_DP,
+                                            banded_scores_indexed,
+                                            pack_seq4)
 from salmon_tpu_torch.mapping.kmers import extract_kmers
 from salmon_tpu_torch.mapping.lookup import hash_lookup
 from salmon_tpu_torch.mapping.pair import (MS_LEFT_ORPHAN, MS_PAIRED,
@@ -48,6 +51,7 @@ from salmon_tpu_torch.mapping.score import (_sort_rows,
                                             score_candidates,
                                             segment_carry_first,
                                             window_bits_for)
+from salmon_tpu_torch.utils.graphcache import GraphCache, tensor_signature
 
 logger = logging.getLogger("salmon_tpu_torch")
 
@@ -248,12 +252,17 @@ def _end_seeds(codes, lengths, dev: dict, cfg: MapperConfig):
     return km, lk
 
 
+def row_pool_env() -> int:
+    """SALMON_TPU_ROWPOOL: the row pool's budget (0 = off)."""
+    return int(os.environ.get("SALMON_TPU_ROWPOOL", "0") or 0)
+
+
 def _dense_candidates(km, lk, dev: dict, cfg: MapperConfig):
     """Stage 3: dense (R, P*C) expansion + per-row sort scoring. With
     SALMON_TPU_ROWPOOL=N on an index with inlined single records, the
     first-row gather is pooled per read row (score.expand_occurrences
     row_pool), as in the JAX package."""
-    row_pool = int(os.environ.get("SALMON_TPU_ROWPOOL", "0") or 0)
+    row_pool = row_pool_env()
     key, rpos, diag, _, n_tail_over = expand_occurrences(
         km, lk, dev["occ_oct"], cfg.occ_cap, cfg.max_occs_per_hit,
         stride=cfg.kmer_stride,
@@ -757,9 +766,9 @@ def _weigh_and_emit(joined: dict, aln_score, perfect, real_row, dev: dict,
     }
 
 
-def map_paired_batch(batch: dict, dev: dict, cfg: MapperConfig, fld: dict,
-                     compat_paired, compat_orphan) -> dict:
-    """Map one paired-end batch end to end.
+def map_paired_batch_impl(batch: dict, dev: dict, cfg: MapperConfig,
+                          fld: dict, compat_paired, compat_orphan) -> dict:
+    """Map one paired-end batch end to end, eagerly.
 
     batch: codes_l/codes_r (R, L) uint8 and lengths_l/lengths_r (R,)
     int32, on the device of `dev`. fld: see _filter_and_weight.
@@ -862,10 +871,10 @@ def map_paired_from_cands(cands, batch: dict, dev: dict, cfg: MapperConfig,
     return out
 
 
-def map_single_batch(batch: dict, dev: dict, cfg: MapperConfig, fld,
-                     compat_single) -> dict:
-    """Map one single-end batch end to end (reference: processReads,
-    single-end overload, SalmonQuantify.cpp:1881-2325).
+def map_single_batch_impl(batch: dict, dev: dict, cfg: MapperConfig, fld,
+                          compat_single) -> dict:
+    """Map one single-end batch end to end, eagerly (reference:
+    processReads, single-end overload, SalmonQuantify.cpp:1881-2325).
 
     batch: codes (R, L) uint8 and lengths (R,) int32 on the device of
     `dev`. compat_single: (2,) bool over observed (fw, rc) hits.
@@ -924,3 +933,96 @@ def map_single_from_cands(cands, batch: dict, dev: dict, cfg: MapperConfig,
         "fmt_hist": fmt_hist,
     })
     return out
+
+
+# ---------------------------------------------------------------------------
+# The compiled step: the counterpart of the JAX package's
+# jax.jit(map_paired_batch_impl / map_single_batch_impl, static cfg).
+# CUDA tensors go through one captured CUDA graph per batch signature
+# (utils.graphcache); CPU tensors run the eager step, the plain version.
+
+# one cache per index on the card, dropped with the index's tensors
+_GRAPHS = WeakIdKeyDictionary()
+
+
+def graph_cache(dev: dict) -> GraphCache:
+    """The graph cache of the index tensors `dev` (made at first use)."""
+    cache = _GRAPHS.get(dev["tab_rows"])
+    if cache is None:
+        cache = _GRAPHS[dev["tab_rows"]] = GraphCache([BANDED_DP])
+    return cache
+
+
+def graph_stats(dev: dict) -> list:
+    """The graph cache's SignatureStats of `dev`, one per signature
+    (none where no step of `dev` ran on the card)."""
+    cache = _GRAPHS.get(dev["tab_rows"])
+    return list(cache.stats.values()) if cache is not None else []
+
+
+def _fld_parts(fld) -> tuple:
+    """(mode, tensors) of the step's FLD input: a dict's mode and
+    (logpmf, logcmf), or None and the bare log-pmf (see _fld_inputs)."""
+    if isinstance(fld, dict):
+        return fld["mode"], [fld["logpmf"], fld["logcmf"]]
+    return None, [fld]
+
+
+def step_signature(kind: str, batch: dict, dev: dict, cfg: MapperConfig,
+                   fld, compat) -> tuple:
+    """Everything the step reads as a Python value, so that a graph is
+    replayed only on inputs it was captured for: the batch's, FLD's and
+    compat tables' shapes and dtypes, the index tensors' addresses and
+    shapes (the graph reads them in place), the frozen config, the FLD
+    mode (None for a bare log-pmf) and SALMON_TPU_ROWPOOL."""
+    mode, fld_t = _fld_parts(fld)
+    return (kind,
+            tuple((k, tensor_signature(batch[k])) for k in sorted(batch)),
+            tuple(tensor_signature(t) for t in fld_t),
+            tuple(tensor_signature(t) for t in compat),
+            tuple((k, v.data_ptr(), tensor_signature(v))
+                  for k, v in sorted(dev.items())),
+            cfg, mode, row_pool_env())
+
+
+def _graphed(kind: str, impl, batch: dict, dev: dict, cfg: MapperConfig,
+             fld, compat: tuple, in_flight: int) -> dict:
+    key = step_signature(kind, batch, dev, cfg, fld, compat)
+    names = sorted(batch)
+    mode, fld_t = _fld_parts(fld)
+    nb, nf = len(names), len(fld_t)
+
+    def step(ts):
+        f = ({"logpmf": ts[nb], "logcmf": ts[nb + 1], "mode": mode}
+             if mode is not None else ts[nb])
+        return impl(dict(zip(names, ts[:nb])), dev, cfg, f, *ts[nb + nf:])
+
+    R, L = batch[names[0]].shape
+    return graph_cache(dev).run(
+        key, step, [batch[k] for k in names] + fld_t + list(compat),
+        ring=in_flight + 1, label=f"{kind} R={R} L={L} fld_mode={mode}")
+
+
+def map_paired_batch(batch: dict, dev: dict, cfg: MapperConfig, fld: dict,
+                     compat_paired, compat_orphan, *,
+                     in_flight: int = 1) -> dict:
+    """map_paired_batch_impl, compiled: on CUDA tensors through one CUDA
+    graph per step_signature (the first batch of a signature runs
+    eagerly, the second captures, every later one replays), on CPU
+    tensors the eager step itself. On the card the outputs of the
+    `in_flight` calls of the same signature before this one stay
+    readable; older ones are overwritten."""
+    if not batch["codes_l"].is_cuda:
+        return map_paired_batch_impl(batch, dev, cfg, fld, compat_paired,
+                                     compat_orphan)
+    return _graphed("paired", map_paired_batch_impl, batch, dev, cfg, fld,
+                    (compat_paired, compat_orphan), in_flight)
+
+
+def map_single_batch(batch: dict, dev: dict, cfg: MapperConfig, fld,
+                     compat_single, *, in_flight: int = 1) -> dict:
+    """map_single_batch_impl, compiled as map_paired_batch is."""
+    if not batch["codes"].is_cuda:
+        return map_single_batch_impl(batch, dev, cfg, fld, compat_single)
+    return _graphed("single", map_single_batch_impl, batch, dev, cfg, fld,
+                    (compat_single,), in_flight)

@@ -43,6 +43,7 @@ from salmon_tpu_torch.io.fastq import (PairedChunk, ReadChunk, bucket_len,
                                        iter_paired_chunks, iter_single_chunks)
 from salmon_tpu_torch.mapping.pipeline import (MapperConfig,
                                                device_index_tensors,
+                                               graph_stats,
                                                map_paired_batch,
                                                map_single_batch)
 from salmon_tpu_torch.models.bias import (bias_device_tensors,
@@ -58,6 +59,7 @@ from salmon_tpu_torch.parallel.sharded import (device_sharded_index,
                                                sharded_map_single, sub_block)
 from salmon_tpu_torch.utils import libformat
 from salmon_tpu_torch.utils.dna import decode_seq
+from salmon_tpu_torch.utils.graphcache import stats_totals
 
 logger = logging.getLogger("salmon_tpu_torch")
 
@@ -500,7 +502,9 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
             fn = sharded_map_paired if paired else sharded_map_single
             return fn(world, batch, dev, cfg, shard_bits, fld_in, *compat)
         fn = map_paired_batch if paired else map_single_batch
-        out = fn(batch, dev, cfg, fld_in, *compat)
+        # the outputs of `depth` batches wait for consume while the next
+        # one maps
+        out = fn(batch, dev, cfg, fld_in, *compat, in_flight=depth)
         return merge_stats(world, out) if multi else out
 
     def submit(chunk):
@@ -560,11 +564,18 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
                 sam_seconds += time.perf_counter() - t_sam
         side_seconds += time.perf_counter() - t_side
 
+    consume_clock = {"eq_accumulate_seconds": 0.0, "consume_seconds": 0.0}
+
     def consume(chunk, batch, out):
         nonlocal n_batches, last_progress, collect_seconds
-        acc.add_batch(_to_np(out["eq_txp"]), _to_np(out["eq_weight"]),
-                      _to_np(out["eq_bins"]) if cfg.range_bins > 0
-                      else None)
+        t_consume = time.perf_counter()
+        # the first copy waits for the batch's mapping to finish
+        eq = (_to_np(out["eq_txp"]), _to_np(out["eq_weight"]),
+              _to_np(out["eq_bins"]) if cfg.range_bins > 0 else None)
+        t_acc = time.perf_counter()
+        acc.add_batch(*eq)
+        acc_seconds = time.perf_counter() - t_acc
+        consume_clock["eq_accumulate_seconds"] += acc_seconds
         if bias_state is not None:
             # the batch's mapping has finished (its eq tensors are on the
             # host), so this clock reads the collection alone
@@ -598,6 +609,8 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
                 totals["num_processed"] / max(el, 1e-9),
                 100.0 * totals["num_mapped"]
                 / max(totals["num_processed"], 1))
+        consume_clock["consume_seconds"] += (time.perf_counter() - t_consume
+                                             - acc_seconds)
 
     # depth-deep host/device pipeline: consume batch N-depth while N
     # runs (depth 1 = the reference's one-batch-stale online state;
@@ -635,6 +648,8 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
                                  want_names))
     profile_dir = getattr(opts, "profile_dir", None)
     prof = _start_profiler(profile_dir, device) if profile_dir else None
+    # map_seconds less the set-up before the loop (the index's upload)
+    t_loop = time.time()
     for chunk in chunks:
         chunk, batch, out = submit(chunk)
         if resolved_format is None:
@@ -668,11 +683,17 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
                        "sam_write_seconds": sam_seconds}
         logger.info("side output clocks (s): %s", side_clocks,
                     extra={"clocks": side_clocks})
+    for st in graph_stats(dev):
+        logger.info("batch step %s: %d eager, %d captured, %d replayed "
+                    "(capture %.3f s, pool %d bytes)", st.label, st.eager,
+                    st.captures, st.replays, st.capture_seconds,
+                    st.pool_bytes)
     if auto_detect and resolved_format is None:
         resolved_format = _detect_library_format(detect_hist, paired)
         logger.info("auto-detected library format (short input): %s",
                     resolved_format)
     map_seconds = time.time() - t0
+    map_loop_seconds = time.time() - t_loop
     if totals["seed_tail_over"]:
         logger.warning(
             "seed tail-gather budget saturated for %d k-mer windows "
@@ -757,8 +778,12 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
     res["map_seconds"] = map_seconds
     res["em_seconds"] = time.time() - t_em
     res.update(clocks)
-    run_clocks = {"map_seconds": map_seconds, "mapped_batches": n_batches,
-                  **read_clock,
+    run_clocks = {"map_seconds": map_seconds,
+                  "map_loop_seconds": map_loop_seconds,
+                  "mapped_batches": n_batches,
+                  **read_clock, **consume_clock,
+                  **{f"graph_{k}": v
+                     for k, v in stats_totals(graph_stats(dev)).items()},
                   "em_seconds": res["em_seconds"]}
     logger.info("quantify clocks (s): %s", run_clocks,
                 extra={"clocks": run_clocks})

@@ -124,3 +124,38 @@ def test_banded_dp_kernel_refuses_non_integer_scores(cuda):
     with pytest.raises(ValueError, match=str(2 ** 20)):
         align.banded_scores_indexed(*args[:11], float(2 ** 20), **kwargs)
     assert align.BANDED_DP.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["paired", "single", "rescue", "sparse"])
+def test_graph_step_matches_eager(cuda, mode):
+    """map_paired_batch / map_single_batch through their CUDA graph
+    against the eager map_*_batch_impl on the sample reads, 4 batches of
+    1,024 whose reads and FLD differ (the first runs eagerly, the second
+    captures, every one after replays): every output key bit-equal but
+    txp_mass (float32 index_add_, its atomic adds in another order on
+    every run; rtol 1e-5), banded_dp counted as eagerly, one capture and
+    3 replays (scripts/bench_graph_step.run_mode checks all of it)."""
+    import os
+
+    from salmon_tpu_torch.index.builder import build_index
+    from salmon_tpu_torch.mapping import pipeline
+    from salmon_tpu_torch.scripts import bench_graph_step as bgs
+    from salmon_tpu_torch.utils import libformat
+
+    data = os.path.join(os.path.dirname(__file__), "data")
+    idx = build_index(os.path.join(data, "transcripts.fasta"), k=31)
+    batches = bgs.load_batches(os.path.join(data, "reads_1.fastq"),
+                               os.path.join(data, "reads_2.fastq"), 1024, 4,
+                               cuda)
+    fmt = libformat.parse_library_format("IU")
+    compat = tuple(torch.as_tensor(t, device=cuda) for t in (
+        libformat.paired_compat_table(fmt),
+        libformat.orphan_compat_table(fmt)))
+    flds = bgs.fld_inputs(batches, pipeline.device_index_tensors(idx, cuda),
+                          pipeline.MapperConfig.from_index(idx), compat,
+                          cuda)
+    assert not torch.equal(flds[1]["logpmf"], flds[2]["logpmf"])
+    rec = bgs.run_mode(mode, idx, batches, flds, cuda)
+    assert rec["counters"] == {"eager": 1, "captures": 1, "replays": 3}
+    assert rec["mapped_fraction"] > 0.9

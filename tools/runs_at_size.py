@@ -19,6 +19,11 @@ run of its own: the human-scale set takes minutes to make and index):
   python tools/runs_at_size.py sims
       python -m salmon_tpu_torch.scripts.sim_paralog_gate (the five
       settings) and python -m salmon_tpu_torch.scripts.sim_rescue_recall
+  python tools/runs_at_size.py graph-step [--work DIR]
+      quant-window's run, then python -m
+      salmon_tpu_torch.scripts.bench_graph_step on the human-scale index
+      and the cache's reads (8 batches of 4,096 a mode: the eager step
+      against its CUDA graph)
 
 DIR (--work) defaults to a new directory under the temporary directory
 (TMPDIR), so that two runs never share their files. Each prints the
@@ -190,10 +195,23 @@ def sims_run(args, logs: str) -> dict:
     return rec
 
 
+def graph_step_run(args, logs: str) -> dict:
+    rec = quant_window_run(args, logs)
+    cache = os.path.join(args.work, "cache")
+    sec, out = _run([sys.executable, "-m",
+                     "salmon_tpu_torch.scripts.bench_graph_step", "--index",
+                     os.path.join(cache, "hs_idx"), "-1",
+                     os.path.join(cache, "reads_1.fastq"), "-2",
+                     os.path.join(cache, "reads_2.fastq")],
+                    os.path.join(logs, "bench_graph_step.log"))
+    rec["graph_step"] = {"seconds": sec, "line": _json_lines(out)[-1]}
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python tools/runs_at_size.py")
     ap.add_argument("run", choices=("quant-window", "alignment",
-                                    "multihost", "sims"))
+                                    "multihost", "sims", "graph-step"))
     ap.add_argument("reps", nargs="?", type=int, default=80)
     ap.add_argument("--work", default=None,
                     help="where the runs' files go (default: a new "
@@ -217,7 +235,8 @@ def main(argv=None) -> int:
     os.makedirs(args.work, exist_ok=True)
     os.makedirs(args.logs, exist_ok=True)
     run = {"quant-window": quant_window_run, "alignment": alignment_run,
-           "multihost": multihost_run, "sims": sims_run}[args.run]
+           "multihost": multihost_run, "sims": sims_run,
+           "graph-step": graph_step_run}[args.run]
     t0 = time.perf_counter()
     rec = {"run": args.run, **run(args, args.logs),
            "total_seconds": time.perf_counter() - t0,
