@@ -112,6 +112,24 @@ Phases, one line each; any failure raises and exits non-zero:
                naming banded_dp_kernel in the replays; wall, device busy,
                host-issued launches and device ops a batch both ways,
                the capture's seconds and pool bytes
+     post    — the post-mapping loops against their eager bodies on
+               phase 5's set and index (scripts/bench_graph_post.py,
+               after a paired --seqBias --gcBias quant that gives them
+               their inputs): the EM on the quant's eq classes and on
+               the harness's 964,064-entry fixture, 16 bootstraps, 16
+               Gibbs draws, both bias passes; each eager (`*_impl`) and
+               through its CUDA graphs, three times each in turns and,
+               after every step's, once more each under torch.profiler: the graph stops at eager's
+               iteration count (unless two eager runs differ in it), its
+               outputs within rtol 1e-5 of eager's (or twice eager
+               against eager), Gibbs draws integral, summing to the eq
+               classes' total and equal across two calls at one seed,
+               every loop captured and replayed, host-issued launches a
+               unit (an iteration, a round, a sampled length) below a
+               tenth of eager's; wall, device busy, launches, idle
+               share, iterations and masked iterations, capture seconds
+               and pool bytes of each, the reserve's peak growth in a
+               call and the loops' shared graph pool
      config5 — BASELINE config 5 shard by shard on the one card
                (salmon_tpu_torch.scripts.demo_config5_quant): that
                table-less decoy index at 2 and 4 shards over the
@@ -163,7 +181,8 @@ each shard's planes, the seconds of load, B1, B2 and the EM), the
 harness JSON line (each harness's record and seconds), the sims JSON
 line (each metric beside its gate or the JAX package's value, the
 banded_dp launches and seconds of each simulation), the graph JSON line
-(each mode's record of the graph phase) and the card's name and power
+(each mode's record of the graph phase), the post JSON line (each
+step's record of the post phase) and the card's name and power
 limit come before the last line,
 which is {"ok": true, "device": {...}}. Imports nothing of JAX or
 salmon_tpu. --profile adds
@@ -1862,6 +1881,19 @@ def scale_phase(syn: str, only=None, bam=None) -> tuple:
                       f"{clocks['graph_replays']} replayed, pool "
                       f"{clocks['graph_pool_bytes']} bytes; peak reserved "
                       f"{clocks['max_memory_reserved']} bytes")
+        if "em_masked_iters" in clocks:
+            extra += (f"; em_seconds {clocks['em_seconds']!r} "
+                      f"({meta['num_em_iterations']} iterations, "
+                      f"{clocks['em_masked_iters']} masked; EM graphs: "
+                      f"{clocks['em_graph_captures']} captured in "
+                      f"{clocks['em_graph_capture_seconds']!r} s, "
+                      f"{clocks['em_graph_replays']} replayed, pool "
+                      f"{clocks['em_graph_pool_bytes']} bytes)")
+        post_graphs = {k[:-len("_replays")]: clocks[k] for k in clocks
+                       if k.endswith("graph_replays") and k.startswith(
+                           ("bias_", "sampling_"))}
+        if post_graphs:
+            extra += f"; post-mapping graph replays {post_graphs}"
         phase("scale", f"{mode}: quant {sec!r} s{rate}; mapped "
               f"{meta['percent_mapped']!r}%; banded_dp "
               f"launches {launches} for {n_batches} batches; NumReads "
@@ -1915,6 +1947,45 @@ def graph_phase(syn: str) -> list:
     return recs
 
 
+POST_DRAWS = 16        # bootstraps and Gibbs draws in the post phase
+
+
+def post_phase(syn: str) -> list:
+    """The post-mapping loops, eager against their CUDA graphs, on phase
+    5's set and index (salmon_tpu_torch.scripts.bench_graph_post; the
+    checks are its own). Returns its records."""
+    from salmon_tpu_torch.index.builder import load_index
+    from salmon_tpu_torch.scripts import bench_graph_post
+
+    index = load_index(os.path.join(syn, "idx"))
+    r1, r2 = (os.path.join(syn, f"reads_{i}.fastq") for i in (1, 2))
+    t0 = time.perf_counter()
+    recs = bench_graph_post.run(index, r1, r2, POST_DRAWS)
+    for rec in recs:
+        e, g = rec["eager"], rec["graph"]
+        its = rec.get("iterations", {})
+        phase("post", f"{rec['step']}: wall {e['wall_s']!r} -> "
+              f"{g['wall_s']!r} s (median; calls {e['walls_s']} -> "
+              f"{g['walls_s']}); device busy {e['busy_s']!r} -> "
+              f"{g['busy_s']!r} s; host-issued launches "
+              f"{e['host_launches']} -> {g['host_launches']}, a "
+              f"{rec['unit']} {e['launches_per_unit']!r} -> "
+              f"{g['launches_per_unit']!r}; idle {e['idle']!r} -> "
+              f"{g['idle']!r}; iterations {its}, masked "
+              f"{rec.get('masked_iterations')}; graphs: "
+              f"{g['signatures']} signatures, {g['eager']} eager steps, "
+              f"{g['captures']} captured in {g['capture_seconds']!r} s, "
+              f"{g['replays']} replayed, pool {g['pool_bytes']} bytes; "
+              f"the reserve's peak growth {e['reserved_growth']} -> "
+              f"{g['reserved_growth']} bytes, the loops' pool "
+              f"{rec['loop_pool_bytes']} bytes; "
+              f"max diff {rec.get('max_diff')}"
+              + (f"; draws equal to eager's: {rec['draws_equal_to_eager']}"
+                 if "draws_equal_to_eager" in rec else ""))
+    phase("post", f"{time.perf_counter() - t0:.1f} s")
+    return recs
+
+
 def sam_fragments(path: str) -> tuple:
     """(paired fragments, orphan fragments, records) of a --writeMappings
     SAM: a paired fragment has two records flagged 0x1, an orphan (or
@@ -1942,6 +2013,8 @@ def device_profile(fn) -> tuple:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from salmon_tpu_torch.utils.graphcache import STEP_SCOPES
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1950,7 +2023,10 @@ def device_profile(fn) -> tuple:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     avg = prof.key_averages()
-    kernels = sorted((e for e in avg if e.device_type == DeviceType.CUDA),
+    # a loop step's profiler scope also lies over the device's work, as
+    # an annotation that is no device time of its own
+    kernels = sorted((e for e in avg if e.device_type == DeviceType.CUDA
+                      and e.key not in STEP_SCOPES.values()),
                      key=lambda e: -e.self_device_time_total)
     return wall, kernels, avg
 
@@ -3186,6 +3262,7 @@ def main() -> int:
                                  seed_runs["sparse"][None])
         runs, rho_sec = scale_phase(syn, bam=bam)
         graph = graph_phase(syn)
+        post = post_phase(syn)
         multi = scale_multi_phase(syn, rho_sec)
         decoy_idx = scale_decoy_phase(syn, multi["sharded2-gloo"])
         config5 = config5_phase(decoy_idx, syn, ptl)
@@ -3206,6 +3283,7 @@ def main() -> int:
     print(json.dumps({"harness": harness}))
     print(json.dumps({"sims": sims}))
     print(json.dumps({"graph": graph}))
+    print(json.dumps({"post": post}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,7 @@ from __future__ import annotations
 import gzip
 import logging
 import os
+import time
 
 import numpy as np
 
@@ -125,8 +126,13 @@ def quantify_eqclasses(args, opts, cmd_args, device) -> int:
         max_iterations=opts.max_em_iterations,
         min_iterations=opts.min_em_iterations)
     # reference forces uniform init in eq-class mode (:1420-1424)
+    t_em = time.perf_counter()
     res = em_mod.optimize(eq, n, eff, config=emc, init_uniform=True,
                           device=device)
+    clocks = {"em_seconds": time.perf_counter() - t_em,
+              **em_mod.loop_clocks([res])}
+    logger.info("eq-class mode clocks (s): %s", clocks,
+                extra={"clocks": clocks})
     counts = res["alphas"]
 
     out = args.output

@@ -603,6 +603,7 @@ def quantify_alignments(args, opts, cmd_args, device) -> int:
                         if bias_state is not None
                         else opts.min_em_iterations))
     res = em_mod.optimize(eq, len(names), eff, config=emc, device=device)
+    em_runs = [res]
     if bias_state is not None:
         # bias-aware effective-length recompute + re-optimize, as in
         # mapping mode (CollapsedEMOptimizer.cpp:900-928)
@@ -611,13 +612,16 @@ def quantify_alignments(args, opts, cmd_args, device) -> int:
                                                       fld_pmf)
         clocks.update({f"bias_{k}_seconds": v
                        for k, v in bias_state.seconds.items()})
+        clocks.update(bias_state.graph_clocks(bdev))
         if not np.allclose(eff2, eff):
             eff = eff2
             t_em2 = time.perf_counter()
             res = em_mod.optimize(eq, len(names), eff, config=emc,
                                   device=device)
+            em_runs.append(res)
             clocks["em2_seconds"] = time.perf_counter() - t_em2
     clocks["em_seconds"] = time.perf_counter() - t_em
+    clocks.update(em_mod.loop_clocks(em_runs))
     logger.info("alignment-mode clocks (s): %s", clocks,
                 extra={"clocks": clocks})
     counts = res["alphas"]

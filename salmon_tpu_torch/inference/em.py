@@ -8,14 +8,23 @@ One iteration is a gather of alpha by entry label, a per-class
 index_add_ for the denominators, and a per-transcript index_add_ for
 the new alphas — at every size. (The JAX package switches to a
 sort-routed layout at 65,536 entries because gathers are dear on the
-TPU; this port keeps one formulation.) float32 on the device; the
-convergence test runs on the host. Below ROUTED_MIN_ENTRIES it runs
-after every iteration, as the reference checks every iteration; from
-ROUTED_MIN_ENTRIES on it runs after each chunk of EM_CHUNK iterations,
-as the JAX package's routed engine does, so that both stop after the
-same number of iterations. run_em's `chunked` picks the rule at any
-size, for callers of the routed engine whatever the size (the
-shard-serial quant of scripts/demo_config5_quant.py).
+TPU; this port keeps one formulation.) float32 on the device.
+
+The convergence loop is the counterpart of the JAX package's
+`jax.lax.while_loop` (salmon_tpu/inference/em.py:108, :151-167): its
+state (alpha, the iteration count, the converged flag, the last
+largest relative change) lives on the device, and the loop runs in
+chunks of EM_GRAPH_CHUNK iterations, each of which runs only while the
+stopping rule says go on (masked_loop). The host reads one flag a
+chunk. On CUDA tensors a chunk is a captured CUDA graph replayed with
+one launch (utils/graphcache.py); on CPU tensors it runs eagerly.
+Below ROUTED_MIN_ENTRIES the rule tests every iteration, as the
+reference does; from ROUTED_MIN_ENTRIES on it tests the last iteration
+of each chunk of EM_CHUNK iterations, as the JAX package's routed
+engine does, so that both stop after the same number of iterations.
+run_em's `chunked` picks the rule at any size, for callers of the
+routed engine whatever the size (the shard-serial quant of
+scripts/demo_config5_quant.py).
 """
 
 from __future__ import annotations
@@ -28,6 +37,8 @@ import torch
 
 from salmon_tpu_torch.constants import DEFAULTS
 from salmon_tpu_torch.inference.eqclasses import PackedEqClasses
+from salmon_tpu_torch.utils.graphcache import (GraphCache, loop_cache,
+                                               loop_step, stats_totals)
 
 MIN_EQ_WEIGHT = 1e-30     # minEQClassWeight analog
 DIGAMMA_MIN = 1e-10
@@ -37,6 +48,16 @@ DIGAMMA_MIN = 1e-10
 # keeps its formulation and takes the same stopping rule there.
 ROUTED_MIN_ENTRIES = 65_536
 EM_CHUNK = 100
+# iterations of one captured chunk of the loop. A chunk runs whole:
+# iterations after the stop are masked (each costs what a live one does
+# and changes nothing), at most EM_GRAPH_CHUNK - 1 of them, against one
+# host read and one graph launch a chunk in place of ~50 launches and,
+# under the per-iteration rule, one read an iteration. The capture costs
+# about what the chunk's iterations cost eagerly, and the first chunk
+# runs eagerly, so the chunk is short enough to pay back within a loop
+# of 50 iterations (PERF.md §6). It divides EM_CHUNK, so that the
+# chunked rule stops at the end of a chunk.
+EM_GRAPH_CHUNK = 5
 
 
 @dataclasses.dataclass
@@ -56,19 +77,116 @@ def _seg_sum(values: torch.Tensor, index: torch.Tensor, n: int):
                        device=values.device).index_add_(0, index, values)
 
 
+def max_rel_diff(alpha: torch.Tensor, alpha_p: torch.Tensor,
+                 cutoff: float) -> torch.Tensor:
+    """The largest |alpha - alpha_p| / alpha_p over entries with
+    alpha_p > cutoff, as a 0-d tensor (0 for no entries)."""
+    rel = torch.where(alpha_p > cutoff, (alpha - alpha_p).abs()
+                      / torch.clamp(alpha_p, min=1e-30), 0.0)
+    return rel.max() if rel.numel() else rel.new_zeros(())
+
+
+def run_chunks(cache: GraphCache | None, key, chunk, more: torch.Tensor,
+               device, label: str) -> int:
+    """chunk() through `cache` (loop_step) until the device flag `more`,
+    which each chunk sets, reads false: the host's one read a chunk.
+    Returns the chunks run."""
+    chunks = 0
+    while True:
+        loop_step(cache, key, chunk, device, label)
+        chunks += 1
+        if not bool(more):
+            return chunks
+
+
+def masked_loop(step, x: torch.Tensor, tol: float, min_iter: int,
+                max_iter: int, chunked: bool, cutoff: float,
+                cache: GraphCache | None, key, label: str) -> dict:
+    """x <- step(x), in place on x's device, until the stopping rule
+    ends the loop; the JAX package's while_loop cond/body
+    (salmon_tpu/inference/em.py:151-167) or, `chunked`, its routed
+    engine's rule.
+
+    Each iteration runs only where it is active: under the
+    per-iteration rule while it < min_iter or (it < max_iter and not
+    converged), converged being the last iteration's largest relative
+    change <= tol; under the chunked rule while it < max_iter and not
+    converged, converged being that change <= tol at an iteration count
+    that ends a chunk of EM_CHUNK and is >= min_iter. The iterations run
+    in chunks of EM_GRAPH_CHUNK through `cache` (loop_step: eagerly
+    where cache is None); the host reads once a chunk whether the next
+    iteration is active. Returns {"iterations", "max_rel_diff" (of the
+    last live iteration; inf before any), "chunks",
+    "masked_iterations"}."""
+    dev = x.device
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    converged = torch.zeros((), dtype=torch.bool, device=dev)
+    mrd = torch.full((), float("inf"), dtype=torch.float32, device=dev)
+
+    def active():
+        live = (it < max_iter) & ~converged
+        return live if chunked else (it < min_iter) | live
+
+    more = active()
+
+    def chunk():
+        for _ in range(EM_GRAPH_CHUNK):
+            act = active()
+            x_p = step(x)
+            m = max_rel_diff(x, x_p, cutoff)
+            it_n = it + act.to(torch.int32)
+            done = m <= tol
+            if chunked:
+                done = done & (it_n % EM_CHUNK == 0) & (it_n >= min_iter)
+            x.copy_(torch.where(act, x_p, x))
+            converged.copy_(torch.where(act, done, converged))
+            mrd.copy_(torch.where(act, m, mrd))
+            it.copy_(it_n)
+        more.copy_(active())
+
+    chunks = (run_chunks(cache, key, chunk, more, dev, label)
+              if max_iter > 0 or (not chunked and min_iter > 0) else 0)
+    iters = int(it)
+    return {"iterations": iters, "max_rel_diff": float(mrd),
+            "chunks": chunks,
+            "masked_iterations": chunks * EM_GRAPH_CHUNK - iters}
+
+
 def run_em(labels: torch.Tensor, seg: torch.Tensor, counts: torch.Tensor,
            aux: torch.Tensor, class_sizes: torch.Tensor,
            alpha0: torch.Tensor, prior: torch.Tensor,
            eff_lens: torch.Tensor, num_txps: int, use_vbem: bool,
            tol: float, min_iter: int, max_iter: int,
            alpha_cutoff: float = DEFAULTS.alpha_check_cutoff,
-           chunked: Optional[bool] = None):
-    """The optimization loop.
+           chunked: Optional[bool] = None, stats: Optional[dict] = None):
+    """run_em_impl, compiled: on CUDA tensors each chunk of the loop
+    replays a CUDA graph captured in this call (its first chunk runs
+    eagerly, the second is captured); on CPU tensors the eager loop
+    itself. A failed capture or replay raises, naming the signature."""
+    cache = loop_cache(alpha0.device)
+    return run_em_impl(labels, seg, counts, aux, class_sizes, alpha0,
+                       prior, eff_lens, num_txps, use_vbem, tol, min_iter,
+                       max_iter, alpha_cutoff, chunked, stats, cache)
+
+
+def run_em_impl(labels: torch.Tensor, seg: torch.Tensor,
+                counts: torch.Tensor, aux: torch.Tensor,
+                class_sizes: torch.Tensor, alpha0: torch.Tensor,
+                prior: torch.Tensor, eff_lens: torch.Tensor, num_txps: int,
+                use_vbem: bool, tol: float, min_iter: int, max_iter: int,
+                alpha_cutoff: float = DEFAULTS.alpha_check_cutoff,
+                chunked: Optional[bool] = None,
+                stats: Optional[dict] = None,
+                cache: GraphCache | None = None):
+    """The optimization loop, its chunks through `cache` (eagerly where
+    it is None).
 
     labels/seg/aux: (E,) per-entry transcript, class and aux weight;
-    counts/class_sizes: (Cl,) per class. chunked: test convergence after
-    each chunk of EM_CHUNK iterations (the routed engine's rule) or after
-    every iteration; None picks by size (ROUTED_MIN_ENTRIES). Returns
+    counts/class_sizes: (Cl,) per class. chunked: the routed engine's
+    rule (convergence tested after each chunk of EM_CHUNK iterations) or
+    the per-iteration one; None picks by size (ROUTED_MIN_ENTRIES).
+    `stats`, when given, receives the loop's chunks and masked
+    iterations and the graph cache's counters ("graph"). Returns
     (alpha, n_iters, max_rel_diff, n_degenerate, available)."""
     n_cl = counts.shape[0]
     # combinedWeights (reference optimize :830-873): count * aux /
@@ -110,36 +228,33 @@ def run_em(labels: torch.Tensor, seg: torch.Tensor, counts: torch.Tensor,
         contrib = torch.where(singleton, count_e, contrib)
         return _seg_sum(contrib, labels, num_txps)
 
-    def max_rel_diff(alpha, alpha_p):
-        rel = torch.where(alpha_p > alpha_cutoff,
-                          (alpha - alpha_p).abs()
-                          / torch.clamp(alpha_p, min=1e-30), 0.0)
-        return float(rel.max()) if rel.numel() else 0.0
-
-    alpha = alpha0
-    it = 0
-    mrd = float("inf")
     if chunked is None:
         chunked = labels.shape[0] >= ROUTED_MIN_ENTRIES
-    if chunked:
-        # chunked stopping rule: the relative difference of each chunk's
-        # last iteration, read after the chunk
-        while it < max_iter:
-            for _ in range(min(EM_CHUNK, max_iter - it)):
-                alpha_prev, alpha = alpha, step(alpha)
-                it += 1
-            mrd = max_rel_diff(alpha_prev, alpha)
-            if it >= min_iter and mrd <= tol:
-                break
-    else:
-        converged = False
-        while it < min_iter or (it < max_iter and not converged):
-            alpha_p = step(alpha)
-            mrd = max_rel_diff(alpha, alpha_p)
-            converged = mrd <= tol
-            alpha = alpha_p
-            it += 1
-    return alpha, it, mrd, int(degenerate.sum()), available
+    rule = "chunked" if chunked else "per-iteration"
+    key = ("em", labels.shape[0], n_cl, num_txps, use_vbem, tol, min_iter,
+           max_iter, alpha_cutoff, EM_GRAPH_CHUNK, rule)
+    label = (f"em E={labels.shape[0]} classes={n_cl} T={num_txps} "
+             f"{'vbem' if use_vbem else 'em'} tol={tol} iterations "
+             f"{min_iter}-{max_iter} K={EM_GRAPH_CHUNK} {rule}")
+    alpha = alpha0.clone()
+    loop = masked_loop(step, alpha, tol, min_iter, max_iter, chunked,
+                       alpha_cutoff, cache, key, label)
+    if stats is not None:
+        stats.update(chunks=loop["chunks"],
+                     masked_iterations=loop["masked_iterations"],
+                     graph=stats_totals(cache.stats.values() if cache
+                                        else ()))
+    return (alpha, loop["iterations"], loop["max_rel_diff"],
+            int(degenerate.sum()), available)
+
+
+def loop_clocks(results: list) -> dict:
+    """em_masked_iters and em_graph_* of optimize's results (summed over
+    the EMs of one quant), for its clocks line."""
+    out = {"em_masked_iters": sum(r["masked_iterations"] for r in results)}
+    for k in stats_totals(()):
+        out[f"em_graph_{k}"] = sum(r["graph"][k] for r in results)
+    return out
 
 
 def initial_alphas(num_txps: int, online_mass: Optional[np.ndarray],
@@ -172,7 +287,8 @@ def optimize(eq: PackedEqClasses, num_txps: int, eff_lens: np.ndarray,
              alt_init: bool = False, device="cuda") -> dict:
     """Host-facing optimize on `device`. Returns dict with alphas
     (estimated read counts, float64), iterations, max_rel_diff,
-    converged, num_degenerate_classes and available."""
+    converged, num_degenerate_classes, available, the loop's
+    masked_iterations and its graph cache's counters (graph)."""
     if total_mapped is None:
         total_mapped = eq.num_fragments
     a0 = initial_alphas(num_txps, online_mass, total_mapped, init_uniform,
@@ -185,12 +301,13 @@ def optimize(eq: PackedEqClasses, num_txps: int, eff_lens: np.ndarray,
 
     f32, i64 = torch.float32, torch.int64
     seg = np.repeat(np.arange(eq.num_classes), eq.class_sizes)
+    loop = {}
     alpha, iters, mrd, n_degen, available = run_em(
         put(eq.labels, i64), put(seg, i64), put(eq.counts, f32),
         put(eq.weights, f32), put(eq.class_sizes, i64), put(a0, f32),
         put(pri, f32), put(eff_lens, f32), num_txps, config.use_vbem,
         config.rel_diff_tolerance, config.min_iterations,
-        config.max_iterations, config.alpha_check_cutoff)
+        config.max_iterations, config.alpha_check_cutoff, stats=loop)
     alphas = alpha.cpu().numpy().astype(np.float64)
     # truncate tiny values (reference :1004-1014)
     alphas[alphas < config.min_alpha] = 0.0
@@ -201,4 +318,6 @@ def optimize(eq: PackedEqClasses, num_txps: int, eff_lens: np.ndarray,
         "converged": mrd <= config.rel_diff_tolerance,
         "num_degenerate_classes": n_degen,
         "available": available.cpu().numpy(),
+        "masked_iterations": loop["masked_iterations"],
+        "graph": loop["graph"],
     }

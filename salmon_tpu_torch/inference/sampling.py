@@ -25,6 +25,16 @@ the routed engine's region order, and all replicates stop together,
 tested after each chunk of EM_CHUNK iterations. Gibbs draws come from a
 torch.Generator seeded with `seed`, not from jax.random: the two
 packages agree in distribution, not in streams.
+
+The JAX package compiles each sampler as one program: a chain is a
+`lax.scan` over samples of a `fori_loop` over thinning rounds
+(salmon_tpu/inference/sampling.py:246, :348), a replicate a
+`while_loop` (:446, :520). Here, on CUDA tensors, the repeated unit is a
+CUDA graph captured in the call (utils/graphcache.py): the thinning
+rounds of all chains that make one sample, replayed once a sample, and
+a chunk of the replicates' iterations, replayed until the host's one
+read a chunk says all have stopped. On CPU tensors the same bodies run
+eagerly (`*_impl` with no cache).
 """
 
 from __future__ import annotations
@@ -33,10 +43,12 @@ import numpy as np
 import torch
 
 from salmon_tpu_torch.constants import DEFAULTS
-from salmon_tpu_torch.inference.em import (DIGAMMA_MIN, EM_CHUNK,
-                                           MIN_EQ_WEIGHT,
-                                           ROUTED_MIN_ENTRIES, prior_alphas)
+from salmon_tpu_torch.inference.em import (DIGAMMA_MIN, MIN_EQ_WEIGHT,
+                                           ROUTED_MIN_ENTRIES, masked_loop,
+                                           prior_alphas, run_chunks)
 from salmon_tpu_torch.inference.eqclasses import PackedEqClasses
+from salmon_tpu_torch.utils.graphcache import (GraphCache, loop_cache,
+                                               loop_step, stats_totals)
 
 GIBBS_BETA = 0.1  # reference: beta in sampleRoundNonCollapsedMultithreaded_
 
@@ -45,8 +57,13 @@ GIBBS_BETA = 0.1  # reference: beta in sampleRoundNonCollapsedMultithreaded_
 # for integers <= 2^24. Deeper classes are split into equal-distribution
 # chunks (Multinomial(n1+n2, p) = Multinomial(n1, p) + Multinomial(n2, p)).
 MULTINOMIAL_COUNT_CAP = 1 << 23
-# iterations between the host's "all replicates converged" checks
+# iterations between the "all replicates converged" checks (the JAX
+# package's): the loop ends at a multiple of them
 BOOT_CHECK_EVERY = 10
+# iterations of one captured chunk of the replicates' loop, which the
+# host reads after: it divides BOOT_CHECK_EVERY, and is short so that
+# the capture pays back in a short loop (em.EM_GRAPH_CHUNK)
+BOOT_GRAPH_CHUNK = 5
 
 
 # class widths of the JAX package's routed engine: the smallest 1.5x-graded
@@ -208,16 +225,40 @@ def gibbs_samples(eq: PackedEqClasses, num_txps: int, eff_lens: np.ndarray,
                   thinning: int = DEFAULTS.thinning_factor,
                   prior: np.ndarray | float = 1e-3,
                   no_gamma_draw: bool = False,
-                  seed: int = 271828, device="cuda") -> np.ndarray:
-    """Generate `num_samples` posterior count draws on `device`.
+                  seed: int = 271828, device="cuda",
+                  stats: dict | None = None) -> np.ndarray:
+    """gibbs_samples_impl, compiled: on a CUDA device each sample
+    replays a CUDA graph of its thinning rounds, captured in this call
+    (the first sample runs eagerly, the second is captured) with the
+    call's generator registered; on the CPU the eager rounds."""
+    cache = loop_cache(device)
+    return gibbs_samples_impl(eq, num_txps, eff_lens, init_counts,
+                              num_samples, thinning, prior, no_gamma_draw,
+                              seed, device, stats, cache)
+
+
+def gibbs_samples_impl(eq: PackedEqClasses, num_txps: int,
+                       eff_lens: np.ndarray, init_counts: np.ndarray,
+                       num_samples: int,
+                       thinning: int = DEFAULTS.thinning_factor,
+                       prior: np.ndarray | float = 1e-3,
+                       no_gamma_draw: bool = False,
+                       seed: int = 271828, device="cuda",
+                       stats: dict | None = None,
+                       cache: GraphCache | None = None) -> np.ndarray:
+    """Generate `num_samples` posterior count draws on `device`, each
+    sample's rounds through `cache` (eagerly where it is None).
 
     Chains restart from the initial EM estimate as the reference does
     (nchains keyed off numSamples, sample :425-437) and run side by side.
-    Returns (num_samples, num_txps) float64 integer counts (exact at any
-    depth: deep classes are chunked and totals accumulate in int32).
+    The draws come from a torch.Generator seeded with `seed`: one seed
+    gives the same draws at every call. `stats`, when given, receives
+    the rounds and the graph cache's counters ("graph"). Returns
+    (num_samples, num_txps) float64 integer counts (exact at any depth:
+    deep classes are chunked and totals accumulate in int32).
     """
     eq = split_deep_classes(eq)
-    dcls, _ = dense_classes(eq, num_txps, device)
+    dcls, S = dense_classes(eq, num_txps, device)
     eff = torch.as_tensor(np.maximum(eff_lens, 1.0), dtype=torch.float32,
                           device=device)
     pri = torch.as_tensor(np.broadcast_to(np.asarray(prior, np.float64),
@@ -229,16 +270,36 @@ def gibbs_samples(eq: PackedEqClasses, num_txps: int, eff_lens: np.ndarray,
     # rounding the (fractional) EM seed only perturbs the first mu draw
     tc = torch.as_tensor(np.rint(np.asarray(init_counts)),
                          dtype=torch.int32, device=device).expand(
-        nchains, num_txps)
+        nchains, num_txps).contiguous()
+    samples = torch.empty((nchains, per_chain, num_txps), dtype=torch.int32,
+                          device=tc.device)
+    row = torch.zeros(1, dtype=torch.int64, device=tc.device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    samples = []
-    for _ in range(per_chain):
+
+    def sample():
+        """The thinning rounds of every chain; their carry becomes the
+        sample of the next row."""
+        t = tc
         for _ in range(thinning):
-            tc = _gibbs_round(gen, tc, dcls, pri, eff, num_txps,
-                              no_gamma_draw)
-        samples.append(tc)
-    out = torch.stack(samples, dim=1).reshape(-1, num_txps)[:num_samples]
+            t = _gibbs_round(gen, t, dcls, pri, eff, num_txps,
+                             no_gamma_draw)
+        tc.copy_(t)
+        samples.index_copy_(1, row, t[:, None])
+        row.add_(1)
+
+    key = ("gibbs", eq.num_classes, S, num_txps, nchains, thinning,
+           no_gamma_draw)
+    label = (f"gibbs classes={eq.num_classes} slots={S} T={num_txps} "
+             f"chains={nchains} thinning={thinning}"
+             f"{' noGammaDraw' if no_gamma_draw else ''}")
+    for _ in range(per_chain):
+        loop_step(cache, key, sample, tc.device, label, generator=gen)
+    if stats is not None:
+        stats.update(rounds=per_chain * thinning,
+                     graph=stats_totals(cache.stats.values() if cache
+                                        else ()))
+    out = samples.reshape(-1, num_txps)[:num_samples]
     return out.cpu().numpy().astype(np.float64)
 
 
@@ -252,9 +313,32 @@ def bootstrap_samples(eq: PackedEqClasses, num_txps: int,
                       max_iter: int = DEFAULTS.max_em_iterations,
                       seed: int = 271828, device="cuda",
                       stats: dict | None = None) -> np.ndarray:
+    """bootstrap_samples_impl, compiled: on a CUDA device each chunk of
+    the replicates' iterations replays a CUDA graph captured in this
+    call (the first chunk runs eagerly, the second is captured); on the
+    CPU the eager loop."""
+    cache = loop_cache(device)
+    return bootstrap_samples_impl(
+        eq, num_txps, eff_lens, num_boot, use_vbem, vb_prior,
+        per_transcript_prior, active_mask, reproject, tol, max_iter, seed,
+        device, stats, cache)
+
+
+def bootstrap_samples_impl(eq: PackedEqClasses, num_txps: int,
+                           eff_lens: np.ndarray, num_boot: int,
+                           use_vbem: bool, vb_prior: float,
+                           per_transcript_prior: bool,
+                           active_mask: np.ndarray | None = None,
+                           reproject: bool = False,
+                           tol: float = DEFAULTS.relative_diff_tolerance,
+                           max_iter: int = DEFAULTS.max_em_iterations,
+                           seed: int = 271828, device="cuda",
+                           stats: dict | None = None,
+                           cache: GraphCache | None = None) -> np.ndarray:
     """Bootstrap replicates: multinomial resample of class counts on the
     host, then an independent EM/VBEM per replicate, all replicates side
-    by side on `device`.
+    by side on `device`, each chunk of iterations through `cache`
+    (eagerly where it is None).
 
     Below ROUTED_MIN_ENTRIES label entries each replicate stops on its
     own, as under the JAX package's vmap(while_loop): after at least 50
@@ -265,8 +349,13 @@ def bootstrap_samples(eq: PackedEqClasses, num_txps: int,
     the resample is drawn over the classes in region order, and every
     replicate runs chunks of EM_CHUNK iterations until, after at least
     50, the largest relative change of a chunk's last iteration over all
-    replicates is <= tol. `stats`, when given, receives the iteration
-    count. Returns (num_boot, num_txps) float64 counts.
+    replicates is <= tol. Either way the iterations run on the device in
+    chunks (BOOT_GRAPH_CHUNK, or em.EM_GRAPH_CHUNK under em.masked_loop)
+    that mask what runs past the stop, and the host reads once a chunk
+    whether the loop runs on. `stats`, when given, receives the
+    iteration count, the chunks, the masked iterations and the graph
+    cache's counters ("graph"). Returns (num_boot, num_txps) float64
+    counts.
     """
     routed = eq.labels.shape[0] >= ROUTED_MIN_ENTRIES
     if routed:
@@ -329,6 +418,14 @@ def bootstrap_samples(eq: PackedEqClasses, num_txps: int,
         return torch.where(alpha_p > cutoff, (alpha - alpha_p).abs()
                            / alpha_p.clamp(min=1e-30), 0.0)
 
+    # replicates side by side: (K, T) alphas, (K, C) class counts
+    loop_key = ("bootstrap", num_boot, C, labels.shape[1], num_txps,
+                use_vbem, tol, max_iter, routed)
+    loop_label = (f"bootstrap replicates={num_boot} classes={C} "
+                  f"slots={labels.shape[1]} T={num_txps} "
+                  f"{'vbem' if use_vbem else 'em'} tol={tol} "
+                  f"max_iter={max_iter} "
+                  f"{'chunked' if routed else 'per-replicate'}")
     min_iter = 50
     cutoff = DEFAULTS.alpha_check_cutoff
 
@@ -354,28 +451,61 @@ def bootstrap_samples(eq: PackedEqClasses, num_txps: int,
     counts = torch.from_numpy(draws).to(device)
 
     alpha = alpha0.expand(num_boot, num_txps).contiguous()
-    iters = 0
     if routed:
-        while iters < max_iter:
-            for _ in range(min(EM_CHUNK, max_iter - iters)):
-                alpha_prev, alpha = alpha, dense_update(alpha, counts)
-                iters += 1
-            mrd = float(rel_diff(alpha_prev, alpha).max())
-            if iters >= min_iter and mrd <= tol:
-                break
+        # every replicate stops together: the routed engine's chunked
+        # rule over the largest change of all replicates
+        loop = masked_loop(lambda a: dense_update(a, counts), alpha, tol,
+                           min_iter, max_iter, True, cutoff, cache,
+                           loop_key, loop_label)
     else:
-        running = torch.ones(num_boot, dtype=torch.bool, device=device)
-        for iters in range(1, max(max_iter, min_iter) + 1):
-            alpha_p = dense_update(alpha, counts)
-            rel = rel_diff(alpha, alpha_p)
-            alpha = torch.where(running[:, None], alpha_p, alpha)
-            if iters >= min_iter:
-                running = running & (rel.amax(dim=1) > tol)
-                if iters % BOOT_CHECK_EVERY == 0 and not bool(running.any()):
-                    break
+        loop = _replicate_loop(dense_update, rel_diff, alpha, counts, tol,
+                               min_iter, max(max_iter, min_iter), cache,
+                               loop_key, loop_label)
     if stats is not None:
-        stats["iterations"] = iters
+        stats.update(iterations=loop["iterations"], chunks=loop["chunks"],
+                     masked_iterations=loop["masked_iterations"],
+                     graph=stats_totals(cache.stats.values() if cache
+                                        else ()))
     if reproject:
         alpha = dense_update(alpha, dcls["counts"].expand(num_boot, C))
     alpha = torch.where(alpha < DEFAULTS.min_alpha, 0.0, alpha)
     return alpha.cpu().numpy().astype(np.float64)
+
+
+def _replicate_loop(update, rel_diff, alpha: torch.Tensor,
+                    counts: torch.Tensor, tol: float, min_iter: int,
+                    limit: int, cache: GraphCache | None, key,
+                    label: str) -> dict:
+    """Each replicate's own while_loop (the JAX package's vmap of it),
+    in place on alpha (K, T): iteration `it` updates the replicates
+    still running; from min_iter on a replicate stops after the first
+    iteration whose largest relative change is <= tol, and keeps its
+    values. The iterations run in chunks of BOOT_GRAPH_CHUNK through
+    `cache`, each masked past `limit`; the host reads after a chunk
+    whether the loop runs on: until `limit`, or a multiple of
+    BOOT_CHECK_EVERY iterations at which no replicate runs."""
+    dev = alpha.device
+    running = torch.ones(alpha.shape[0], dtype=torch.bool, device=dev)
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    more = torch.ones((), dtype=torch.bool, device=dev)
+
+    def chunk():
+        for _ in range(BOOT_GRAPH_CHUNK):
+            act = it < limit
+            alpha_p = update(alpha, counts)
+            rel = rel_diff(alpha, alpha_p)
+            alpha.copy_(torch.where((running & act)[:, None], alpha_p,
+                                    alpha))
+            it_n = it + act.to(torch.int32)
+            running.copy_(torch.where(act & (it_n >= min_iter),
+                                      running & (rel.amax(dim=1) > tol),
+                                      running))
+            it.copy_(it_n)
+        more.copy_((running.any() | (it % BOOT_CHECK_EVERY != 0))
+                   & (it < limit))
+
+    chunks = run_chunks(cache, key, chunk, more, dev, label) if limit > 0 \
+        else 0
+    iters = int(it)
+    return {"iterations": iters, "chunks": chunks,
+            "masked_iterations": chunks * BOOT_GRAPH_CHUNK - iters}

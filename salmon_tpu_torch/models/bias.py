@@ -27,6 +27,9 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
+
+from salmon_tpu_torch.utils.graphcache import GraphCache, tensor_signature
 
 # --- SBModel structure (variable-order Markov model) ---------------------
 SB_ORDER = (0, 1, 2, 2, 2, 2, 2, 2, 2)   # per-position context order
@@ -68,9 +71,12 @@ def sb_context_indices(ctx_codes: torch.Tensor) -> torch.Tensor:
     cut here from the packing of all 9 bases.
     """
     c = ctx_codes.to(torch.int32) & 3
-    shift = torch.tensor(SB_SHIFT, dtype=torch.int32, device=c.device)
+    # SB_SHIFT and SB_MASK made on the device (no host copy, which a
+    # captured graph cannot hold): order[i] = min(i, 2)
+    j = torch.arange(SB_CTX, dtype=torch.int32, device=c.device)
+    shift = 2 * (SB_CTX - 1 - j)
+    mask = (1 << 2 * (torch.clamp(j, max=max(SB_ORDER)) + 1)) - 1
     packed = (c << shift).sum(dim=-1, dtype=torch.int32)
-    mask = torch.tensor(SB_MASK, dtype=torch.int32, device=c.device)
     return (packed[..., None] >> shift) & mask
 
 
@@ -303,8 +309,61 @@ def _seg_sum(values: torch.Tensor, index: torch.Tensor, n: int):
         values.reshape(-1).to(torch.float32))
 
 
+# one cache per bias_device_tensors on the card, dropped with its tensors
+_GRAPHS = WeakIdKeyDictionary()
+# least rows of a padded batch on the card (see collect_bias_observations)
+COLLECT_MIN_ROWS = 256
+
+
+def collect_graph_stats(bdev: dict) -> list:
+    """The collection's SignatureStats of `bdev`, one per signature (none
+    where no batch of `bdev` was collected on the card)."""
+    cache = _GRAPHS.get(bdev["seq_codes"])
+    return list(cache.stats.values()) if cache is not None else []
+
+
 def collect_bias_observations(bdev: dict, txp, frag_start, frag_end, fw1,
                               len1, len2, frag_valid, weight) -> dict:
+    """collect_bias_observations_impl, compiled: the counterpart of the
+    JAX package's jax.jit of it (salmon_tpu/quant.py:299,
+    salmon_tpu/alignment/quant.py:363). On CUDA tensors, one CUDA graph
+    per batch signature (utils/graphcache.py; the first batch of a
+    signature eager, the second captured, the rest replayed). The
+    outputs are the graph's one output set, which the next batch of the
+    signature overwrites: a caller copies them out first, as
+    BiasObservations.add_batch does at once. A batch is padded to the
+    next power of two rows (at least COLLECT_MIN_ROWS) with invalid
+    rows, which add nothing, so that batches of other lengths (`-a`)
+    share a signature. On CPU tensors, the eager body itself."""
+    args = [txp, frag_start, frag_end, fw1, len1, len2, frag_valid, weight]
+    if not txp.is_cuda:
+        return collect_bias_observations_impl(bdev, *args)
+    args = padded_rows(args)
+    rows = args[0].shape[0]
+    cache = _GRAPHS.get(bdev["seq_codes"])
+    if cache is None:
+        cache = _GRAPHS[bdev["seq_codes"]] = GraphCache()
+    key = ("bias_collect", tuple(tensor_signature(a) for a in args),
+           tuple((k, v.data_ptr(), tensor_signature(v))
+                 for k, v in sorted(bdev.items())))
+    return cache.run(key, lambda ts: collect_bias_observations_impl(
+        bdev, *ts), args, ring=1, label=f"bias collection R={rows}")
+
+
+def padded_rows(args: list) -> list:
+    """The (R,) inputs padded with zeros (rows that are not frag_valid,
+    so that they add nothing) to the next power of two rows, at least
+    COLLECT_MIN_ROWS."""
+    n = args[0].shape[0]
+    rows = max(COLLECT_MIN_ROWS, 1 << max(0, n - 1).bit_length())
+    if rows == n:
+        return args
+    return [torch.cat([a, a.new_zeros(rows - n)]) for a in args]
+
+
+def collect_bias_observations_impl(bdev: dict, txp, frag_start, frag_end,
+                                   fw1, len1, len2, frag_valid,
+                                   weight) -> dict:
     """Device collection of one batch's observed-bias statistics.
 
     Args are (R,) best-alignment fields: transcript id, fragment start /

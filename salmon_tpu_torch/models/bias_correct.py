@@ -4,8 +4,10 @@ Counterpart of salmon_tpu/models/bias_correct.py: the host-side driver
 over the device passes in bias.py / bias_expected.py, the role of
 updateEffectiveLengths (src/util/SalmonUtils.cpp:1208-1980) called from
 CollapsedEMOptimizer::optimize (:900-928). The JAX package's two jitted
-bucket programs are plain calls here; each bucket's code matrix, lengths
-and length classes go to the device once, in BiasState.__init__.
+bucket programs are bias_expected's bucket passes, whose per-length body
+replays a CUDA graph on the card (a GraphCache a bucket's pass); each
+bucket's code matrix, lengths and length classes go to the device once,
+in BiasState.__init__.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from salmon_tpu_torch.models import bias as B
 from salmon_tpu_torch.models import bias_expected as BE
+from salmon_tpu_torch.utils.graphcache import stats_totals
 
 logger = logging.getLogger("salmon_tpu_torch")
 
@@ -96,7 +99,9 @@ class BiasState:
     expected statistics (exp5_counts, exp3_counts, gc_exp, pos5_exp,
     pos3_exp) and the GC models it compared (gc_obs_model,
     gc_exp_model) are set, for the dumps; `seconds` holds the pass
-    clocks ("expected", "efflen"), each ending in a device sync."""
+    clocks ("expected", "efflen"), each ending in a device sync, and
+    `graphs` each pass's graph cache counters (stats_totals; zeros on
+    the CPU, where the passes run eagerly)."""
 
     def __init__(self, index, opts, device="cuda"):
         self.opts = opts
@@ -125,6 +130,16 @@ class BiasState:
         self.gc_exp = self.pos5_exp = self.pos3_exp = None
         self.gc_obs_model = self.gc_exp_model = None
         self.seconds = {}
+        self.graphs = {}
+
+    def graph_clocks(self, bdev: dict) -> dict:
+        """The graph counters of the collection on `bdev` and of the last
+        passes, as a quant's clocks name them (bias_collect_graph_*,
+        bias_expected_graph_*, bias_efflen_graph_*)."""
+        parts = {"collect": stats_totals(B.collect_graph_stats(bdev)),
+                 **self.graphs}
+        return {f"bias_{p}_graph_{k}": v for p, g in parts.items()
+                for k, v in g.items()}
 
     def _put(self, a, dtype=torch.float32):
         return torch.as_tensor(np.asarray(a), dtype=dtype,
@@ -166,14 +181,16 @@ class BiasState:
         t0 = time.perf_counter()
         w_dev = self._put(weights)
         sums = {}
+        graphs = []
         for b in self.buckets:
             out = BE.expected_pass_bucket(
                 b["codes"], b["lens"], w_dev[b["idx"]], b["len_class"], cdf,
-                fld_low, fld_high, gc_samp, seq_b, gc_b, pos_b)
+                fld_low, fld_high, gc_samp, seq_b, gc_b, pos_b, stats=graphs)
             for k, v in out.items():
                 sums[k] = sums[k] + v.double() if k in sums else v.double()
         host = {k: v.cpu().numpy() for k, v in sums.items()}
         self.seconds["expected"] = time.perf_counter() - t0
+        self.graphs["expected"] = stats_totals(graphs)
 
         def get(k, shape):
             return host[k] if k in host else np.zeros(shape)
@@ -228,11 +245,14 @@ class BiasState:
         eff_dev, proc_dev = self._put(eff_in), self._put(process, torch.bool)
         # every valid target lies in one bucket, so every row is written
         eff_out = torch.empty_like(eff_dev)
+        graphs = []
         for b in self.buckets:
             eff_out[b["idx"]] = BE.efflen_pass_bucket(
                 b["codes"], b["lens"], eff_dev[b["idx"]], proc_dev[b["idx"]],
                 b["len_class"], cdf, fld_low, fld_high, gc_samp, *tabs,
-                seq_b, gc_b, pos_b, bool(o.no_bias_length_threshold))
+                seq_b, gc_b, pos_b, bool(o.no_bias_length_threshold),
+                stats=graphs)
         out = eff_out.cpu().numpy().astype(np.float64)
         self.seconds["efflen"] = time.perf_counter() - t0
+        self.graphs["efflen"] = stats_totals(graphs)
         return out

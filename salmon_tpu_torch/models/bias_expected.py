@@ -8,9 +8,18 @@ length as sum_fl flWeight * sum_pos (seqFW[s] * seqRC[e] * gcRatio(desc)
 * posFW[s] * posRC[e]).
 
 Transcripts are bucketed by padded length into (B, Lmax) code matrices
-(host); both passes are torch programs on the bucket's device, with a
-Python loop over the sampled fragment lengths in place of the JAX
-package's fori_loop. Each bucket is processed in row chunks of at most
+(host); both passes are torch programs on the bucket's device. The JAX
+package jits each bucket's pass (salmon_tpu/models/bias_correct.py:91,
+:100) around a fori_loop over the sampled fragment lengths; here the
+repeated unit is the per-length body, which takes the length and its
+weights as device tensors (the rolls by the length become gathers at
+s + fl - 1, masked as the rolls' wrapped cells were), so that on CUDA
+tensors one captured CUDA graph of the body serves every sampled length
+of a row chunk (utils/graphcache.py: the first length eager, the second
+captured, the rest replayed, one launch each; the graph dropped after
+the chunk's last length); on CPU tensors the body
+runs eagerly (`*_impl` with no cache). Each bucket is processed in row
+chunks of at most
 MAX_CELLS padded cells, so a pass fits any index the mapping path can
 load; the seq-bias state indices are built one context position at a
 time, never as a (B, L, 9) tensor. Context-GC for expected fragments
@@ -30,12 +39,18 @@ from salmon_tpu_torch.models.bias import (GC_BINS, GC_COND_BINS,
                                           SB_CONTEXT_LEFT, SB_CTX, SB_MASK,
                                           SB_ROWS, SB_SHIFT, pos_bin_of,
                                           take_clip)
+from salmon_tpu_torch.utils.graphcache import (GraphCache, loop_cache,
+                                               loop_step)
 
 MIN_ALPHA_BG = 1e-8   # minAlpha cutoff for background transcripts
 MIN_CDF_MASS = 1e-10
 POS_GRID = 1024       # spline factor grid resolution (device lookup)
 # padded (row x position) cells per chunk of a bucket: bounds a pass's
-# peak device memory (~100 bytes a cell in the seq-bias part)
+# peak device memory (~100 bytes a cell in the seq-bias part). On the
+# card the per-length body's working set is held twice, in the
+# allocator's cache (a chunk's first length runs eagerly) and in the
+# loops' graph pool (utils/graphcache.loop_graphs), which keeps the
+# largest chunk's for the process
 MAX_CELLS = 1 << 23
 # copies of the bins that the expected pass's histograms spread their
 # values over on a GPU (value k adds to copy k % HIST_COPIES), summed
@@ -150,25 +165,50 @@ def _gc_windows(gcum, lens, pos):
             torch.where(ts < 0, te_c + 1, te_c - ts_c))
 
 
-def _gc_bins(gcum, windows, fl: int):
+def _gc_bins(gcum, windows, pos, fl):
     """(frag_bin, cond_bin) of the fragment [s, s + fl - 1] at every
-    position s. The fragment's end values are the start's rolled by
-    fl - 1 (its GC count by fl); wrapped cells are positions where the
-    fragment runs past the transcript, which every caller masks."""
+    position s; fl is a 0-d int32 device tensor. The fragment's GC count
+    reads the prefix sums at s + fl, its 3' window the windows at its end
+    s + fl - 1, each gathered with the index clamped into the row: cells
+    where the fragment runs past the transcript read an edge value, and
+    every caller masks them."""
     fp_gc, fp_size, tp_gc, tp_size = windows
     L = fp_gc.shape[1]
-    gc = torch.roll(gcum, -fl, dims=1)[:, :L] - gcum[:, :L]
-    frag_bin = torch.round(100.0 * gc.to(torch.float32) / fl).to(
-        torch.int32).clamp(0, 100)
-    tp_gc = torch.roll(tp_gc, -(fl - 1), dims=1)
-    ctx = (fp_size + torch.roll(tp_size, -(fl - 1), dims=1)).to(
-        torch.float32)
+    end = (pos + fl - 1).to(torch.int64)
+    gc = torch.gather(gcum, 1, torch.clamp(end + 1, max=L)) - gcum[:, :L]
+    frag_bin = torch.round(100.0 * gc.to(torch.float32)
+                           / fl.to(torch.float32)).to(torch.int32).clamp(
+        0, 100)
+    end = torch.clamp(end, max=L - 1)
+    tp_gc = torch.gather(tp_gc, 1, end)
+    ctx = (fp_size + torch.gather(tp_size, 1, end)).to(torch.float32)
     frac = torch.where(ctx > 0, torch.round(
         100.0 * (fp_gc + tp_gc).to(torch.float32) / ctx.clamp(min=1.0)),
         0.0)
     w = 100.0 / GC_COND_BINS
     cond_bin = torch.clamp((frac / w).to(torch.int32), max=GC_COND_BINS - 1)
     return frag_bin, cond_bin
+
+
+def _per_length(cache: GraphCache | None, key, label: str, fls: list,
+                fl_ws: torch.Tensor, body) -> None:
+    """body(fl, fl_w) for every sampled length, in order, through
+    `cache` (loop_step): fl the length as a 0-d int32 device tensor,
+    fl_w its (B,) weights, each read inside the step at a device index
+    that the step advances. The graph of `key` is dropped after the last
+    length: a row chunk's graph is not replayed again."""
+    device = fl_ws.device
+    fl_t = torch.tensor(fls, dtype=torch.int32, device=device)
+    i = torch.zeros(1, dtype=torch.int64, device=device)
+
+    def step():
+        body(fl_t.index_select(0, i)[0], fl_ws.index_select(0, i)[0])
+        i.add_(1)
+
+    for _ in fls:
+        loop_step(cache, key, step, device, label)
+    if cache is not None:
+        cache.drop(key)
 
 
 def _fl_grid(fld_low: int, fld_high: int, gc_samp: int):
@@ -181,32 +221,60 @@ def expected_pass_bucket(codes, lens, weights, len_class, cdf,
                          fld_low: int, fld_high: int, gc_samp: int,
                          seq_bias: bool, gc_bias: bool, pos_bias: bool,
                          max_cells: int = MAX_CELLS,
-                         hist_copies: int | None = None) -> dict:
+                         hist_copies: int | None = None,
+                         stats: list | None = None) -> dict:
+    """expected_pass_bucket_impl, compiled: on CUDA tensors through a
+    GraphCache of this call, whose graphs of the per-length body each
+    serve one row chunk; on CPU tensors the eager body. `stats`, a
+    list, receives the cache's SignatureStats."""
+    cache = loop_cache(codes.device)
+    out = expected_pass_bucket_impl(
+        codes, lens, weights, len_class, cdf, fld_low, fld_high, gc_samp,
+        seq_bias, gc_bias, pos_bias, max_cells, hist_copies, cache)
+    if stats is not None and cache is not None:
+        stats.extend(cache.stats.values())
+    return out
+
+
+def expected_pass_bucket_impl(codes, lens, weights, len_class, cdf,
+                              fld_low: int, fld_high: int, gc_samp: int,
+                              seq_bias: bool, gc_bias: bool, pos_bias: bool,
+                              max_cells: int = MAX_CELLS,
+                              hist_copies: int | None = None,
+                              cache: GraphCache | None = None) -> dict:
     """Pass 1 for one bucket: abundance-weighted expected statistics.
 
     codes: (B, Lmax) uint8; lens: (B,) int32; weights: (B,) f32
     (alpha/effLen, zero for excluded rows); len_class: (B,) int32; cdf:
     float32 FLD cdf; all on one device. hist_copies: copies of each
     histogram's bins (default 1 on the CPU, HIST_COPIES elsewhere).
-    Returns float32 tensors exp5/exp3 (64, 9), gc_exp (3, 101),
-    pos5/pos3 (5, 20) for the biases asked for.
+    cache: runs the per-length body (eagerly where None); a cache made
+    for this call alone, since its signatures leave out the tensors that
+    the body reads, which die with the call. Returns
+    float32 tensors exp5/exp3 (64, 9), gc_exp (3, 101), pos5/pos3
+    (5, 20) for the biases asked for.
     """
     B, L = codes.shape
     if hist_copies is None:
         hist_copies = 1 if codes.device.type == "cpu" else HIST_COPIES
     out = {}
     for r0, r1 in _row_chunks(B, L, max_cells):
+        key = ("bias_expected", L, r0, r1, seq_bias, gc_bias, pos_bias,
+               fld_low, fld_high, gc_samp, hist_copies)
+        label = (f"bias expected pass L={L} rows {r0}-{r1} "
+                 f"lengths {fld_low}-{fld_high}/{gc_samp}")
         part = _expected_rows(codes[r0:r1], lens[r0:r1], weights[r0:r1],
                               len_class[r0:r1], cdf, fld_low, fld_high,
                               gc_samp, seq_bias, gc_bias, pos_bias,
-                              hist_copies)
+                              hist_copies, cache, key, label)
         for k, v in part.items():
             out[k] = out[k] + v if k in out else v
     return out
 
 
 def _expected_rows(codes, lens, weights, len_class, cdf, fld_low, fld_high,
-                   gc_samp, seq_bias, gc_bias, pos_bias, copies) -> dict:
+                   gc_samp, seq_bias, gc_bias, pos_bias, copies, cache,
+                   loop_key, label) -> dict:
     B, L = codes.shape
     device = codes.device
     c = codes.to(torch.int32)
@@ -270,15 +338,18 @@ def _expected_rows(codes, lens, weights, len_class, cdf, fld_low, fld_high,
         windows = _gc_windows(gcum, lens, pos)
         fls = _fl_grid(fld_low, fld_high, gc_samp)
         fl_ws = _fl_weights(cdf, fls, gc_samp, cdf_max_arg, cdf_max_val)
-        for fl, fl_w in zip(fls, fl_ws):
+
+        def body(fl, fl_w):
             svalid = (pos + fl - 1 < lens[:, None]) & row_ok[:, None]
-            frag_bin, cond_bin = _gc_bins(gcum, windows, fl)
+            frag_bin, cond_bin = _gc_bins(gcum, windows, pos, fl)
             wv = torch.where(svalid, wrow[:, None] * fl_w[:, None], 0.0)
             # one histogram per fragment length, added to the running sum
             # (the JAX package's association)
-            acc = acc + fold(zeros(n).index_add_(
+            acc.add_(fold(zeros(n).index_add_(
                 0, (cond_bin * GC_BINS + frag_bin).reshape(-1) + off,
-                wv.reshape(-1)), n)
+                wv.reshape(-1)), n))
+
+        _per_length(cache, loop_key, label, fls, fl_ws, body)
         out["gc_exp"] = acc.reshape(GC_COND_BINS, GC_BINS)
     return out
 
@@ -300,31 +371,60 @@ def efflen_pass_bucket(codes, lens, eff_in, process_row, len_class, cdf,
                        gc_ratio, pos_grid_fw, pos_grid_rc,
                        seq_bias: bool, gc_bias: bool, pos_bias: bool,
                        no_threshold: bool = False,
-                       max_cells: int = MAX_CELLS) -> torch.Tensor:
+                       max_cells: int = MAX_CELLS,
+                       stats: list | None = None) -> torch.Tensor:
+    """efflen_pass_bucket_impl, compiled as expected_pass_bucket is."""
+    cache = loop_cache(codes.device)
+    out = efflen_pass_bucket_impl(
+        codes, lens, eff_in, process_row, len_class, cdf, fld_low,
+        fld_high, gc_samp, obs5_logp, exp5_logp, obs3_logp, exp3_logp,
+        gc_ratio, pos_grid_fw, pos_grid_rc, seq_bias, gc_bias, pos_bias,
+        no_threshold, max_cells, cache)
+    if stats is not None and cache is not None:
+        stats.extend(cache.stats.values())
+    return out
+
+
+def efflen_pass_bucket_impl(codes, lens, eff_in, process_row, len_class,
+                            cdf, fld_low: int, fld_high: int, gc_samp: int,
+                            obs5_logp, exp5_logp, obs3_logp, exp3_logp,
+                            gc_ratio, pos_grid_fw, pos_grid_rc,
+                            seq_bias: bool, gc_bias: bool, pos_bias: bool,
+                            no_threshold: bool = False,
+                            max_cells: int = MAX_CELLS,
+                            cache: GraphCache | None = None) -> torch.Tensor:
     """Pass 2 for one bucket: bias-corrected effective lengths.
 
     obs/exp *_logp: (64, 9) float32 conditional log-prob tables (zeros
     when seq_bias is off); gc_ratio: (3, 101); pos_grid_*: (5, POS_GRID)
     obs/exp factor ratio on a fractional-position grid; eff_in (B,)
-    float32; process_row (B,) bool. Returns (B,) float32 effective
-    lengths (unprocessed rows -> eff_in).
+    float32; process_row (B,) bool; cache: runs the per-length body
+    (eagerly where None), made for this call alone, as in
+    expected_pass_bucket_impl. Returns (B,) float32 effective lengths
+    (unprocessed rows -> eff_in).
     """
     B, L = codes.shape
     tables = (obs5_logp.reshape(-1), exp5_logp.reshape(-1),
               obs3_logp.reshape(-1), exp3_logp.reshape(-1),
               gc_ratio.reshape(-1), pos_grid_fw.reshape(-1),
               pos_grid_rc.reshape(-1))
-    parts = [_efflen_rows(codes[r0:r1], lens[r0:r1], eff_in[r0:r1],
-                          process_row[r0:r1], len_class[r0:r1], cdf,
-                          fld_low, fld_high, gc_samp, tables, seq_bias,
-                          gc_bias, pos_bias, no_threshold)
-             for r0, r1 in _row_chunks(B, L, max_cells)]
+    parts = []
+    for r0, r1 in _row_chunks(B, L, max_cells):
+        key = ("bias_efflen", L, r0, r1, seq_bias, gc_bias, pos_bias,
+               fld_low, fld_high, gc_samp)
+        label = (f"bias efflen pass L={L} rows {r0}-{r1} "
+                 f"lengths {fld_low}-{fld_high}/{gc_samp}")
+        parts.append(_efflen_rows(
+            codes[r0:r1], lens[r0:r1], eff_in[r0:r1], process_row[r0:r1],
+            len_class[r0:r1], cdf, fld_low, fld_high, gc_samp, tables,
+            seq_bias, gc_bias, pos_bias, no_threshold, cache, key, label))
     return torch.cat(parts) if parts else eff_in.clone()
 
 
 def _efflen_rows(codes, lens, eff_in, process_row, len_class, cdf,
                  fld_low, fld_high, gc_samp, tables, seq_bias, gc_bias,
-                 pos_bias, no_threshold) -> torch.Tensor:
+                 pos_bias, no_threshold, cache, loop_key,
+                 label) -> torch.Tensor:
     obs5, exp5, obs3, exp3, gc_ratio, grid_fw, grid_rc = tables
     B, L = codes.shape
     device = codes.device
@@ -368,16 +468,21 @@ def _efflen_rows(codes, lens, eff_in, process_row, len_class, cdf,
     windows = _gc_windows(gcum, lens, pos) if gc_bias else None
     fls = _fl_grid(fld_low, fld_high, gc_samp)
     fl_ws = _fl_weights(cdf, fls, gc_samp, cdf_max_arg, cdf_max_val)
-    for fl, fl_w in zip(fls, fl_ws):
-        # e = s + fl - 1: align the rc factors by rolling left (the
-        # wrapped cells fall outside svalid)
-        frag = sfw * torch.roll(src, -(fl - 1), dims=1)
+
+    def body(fl, fl_w):
+        # e = s + fl - 1: the rc factor at the fragment's end, gathered
+        # with the index clamped into the row (cells past the
+        # transcript fall outside svalid)
+        end = torch.clamp(pos + fl - 1, max=L - 1).to(torch.int64)
+        frag = sfw * torch.gather(src, 1, end)
         if gc_bias:
-            frag_bin, cond_bin = _gc_bins(gcum, windows, fl)
+            frag_bin, cond_bin = _gc_bins(gcum, windows, pos, fl)
             frag = frag * take_clip(gc_ratio, cond_bin * GC_BINS + frag_bin)
         svalid = pos + fl - 1 < lens[:, None]
         fl_mass = torch.where(svalid, frag, 0.0).sum(dim=1)
-        eff = eff + fl_w * fl_mass
+        eff.add_(fl_w * fl_mass)
+
+    _per_length(cache, loop_key, label, fls, fl_ws, body)
     unprocessed = torch.clamp(lens.to(torch.float32) - eff_in, min=0.0)
     if no_threshold:
         # --noBiasLengthThreshold (reference :1959-1964): take the raw

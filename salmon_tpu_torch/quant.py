@@ -753,11 +753,13 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
 
     t_em = time.time()
     clocks = {}
+    em_runs = []     # each EM's result, for its loop's clocks
     if opts.skip_quant:
         res = {"alphas": np.zeros(n_valid), "iterations": 0,
                "max_rel_diff": 0.0, "converged": False, "skipped": True}
     else:
         res = optimize(eff)
+        em_runs.append(res)
     if bias_state is not None and not opts.skip_quant:
         # bias-aware effective-length recompute + re-optimize (reference:
         # the mid-loop needsBiasLengthRecompute step,
@@ -767,11 +769,13 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
                                                       fld_pmf)
         clocks = {"bias_collect_seconds": collect_seconds,
                   **{f"bias_{k}_seconds": v
-                     for k, v in bias_state.seconds.items()}}
+                     for k, v in bias_state.seconds.items()},
+                  **bias_state.graph_clocks(bdev)}
         if not np.allclose(eff2, eff):
             eff = eff2
             t_em2 = time.time()
             res = optimize(eff)
+            em_runs.append(res)
             clocks["em2_seconds"] = time.time() - t_em2
         logger.info("bias correction clocks (s): %s", clocks,
                     extra={"clocks": clocks})
@@ -784,7 +788,8 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
                   **read_clock, **consume_clock,
                   **{f"graph_{k}": v
                      for k, v in stats_totals(graph_stats(dev)).items()},
-                  "em_seconds": res["em_seconds"]}
+                  "em_seconds": res["em_seconds"],
+                  **em_mod.loop_clocks(em_runs)}
     logger.info("quantify clocks (s): %s", run_clocks,
                 extra={"clocks": run_clocks})
 
@@ -811,10 +816,11 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
 
 
 def _posterior_samples(result: QuantResult, opts: SalmonDefaults,
-                       seed: int, device):
+                       seed: int, device, stats: Optional[dict] = None):
     """Gibbs or bootstrap draws on `device` (reference:
-    stageFinalizeMappingOutputs :63-98). Returns (samples, samp_type) or
-    (None, 'none')."""
+    stageFinalizeMappingOutputs :63-98); `stats` receives the sampler's
+    (its graph cache's counters among them). Returns (samples,
+    samp_type) or (None, 'none')."""
     n = len(result.names)
     use_vb = opts.use_vb_opt and not opts.use_em
     if opts.num_gibbs_samples > 0:
@@ -831,14 +837,15 @@ def _posterior_samples(result: QuantResult, opts: SalmonDefaults,
             result.eq_classes, n, result.eff_lens, result.counts,
             opts.num_gibbs_samples, thinning=opts.thinning_factor,
             prior=prior, no_gamma_draw=opts.no_gamma_draw, seed=seed,
-            device=device)
+            device=device, stats=stats)
         return samples, "gibbs"
     if opts.num_bootstraps > 0:
         samples = sampling.bootstrap_samples(
             result.eq_classes, n, result.eff_lens, opts.num_bootstraps,
             use_vbem=use_vb, vb_prior=opts.vb_prior,
             per_transcript_prior=opts.per_transcript_prior,
-            reproject=opts.bootstrap_reproject, seed=seed, device=device)
+            reproject=opts.bootstrap_reproject, seed=seed, device=device,
+            stats=stats)
         return samples, "bootstrap"
     return None, "none"
 
@@ -884,9 +891,15 @@ def write_outputs(result: QuantResult, index: TranscriptomeIndex,
     if (result.eq_classes is not None and result.eq_classes.num_classes
             and not opts.skip_quant):
         t0 = time.perf_counter()
-        samples, samp_type = _posterior_samples(result, opts, seed, device)
+        samp = {}
+        samples, samp_type = _posterior_samples(result, opts, seed, device,
+                                                samp)
         if samples is not None:
-            clocks = {"sampling_seconds": time.perf_counter() - t0}
+            clocks = {"sampling_seconds": time.perf_counter() - t0,
+                      **{f"sampling_{k}": v for k, v in samp.items()
+                         if k != "graph"},
+                      **{f"sampling_graph_{k}": v
+                         for k, v in samp["graph"].items()}}
             logger.info("posterior sampling (%s, %d draws): %.3f s",
                         samp_type, samples.shape[0],
                         clocks["sampling_seconds"], extra={"clocks": clocks})

@@ -32,16 +32,37 @@ adds it again at every replay.
 Only the caller's tensors go in and out: the cache keeps no reference to
 the step function, so what the step closes over (the index tensors) is
 freed with its owner.
+
+A loop's step (`step`: the EM's chunk of iterations, a Gibbs sample, a
+bias pass's body for one fragment length) has no inputs or outputs of
+its own: it reads and updates, in place, tensors that the caller keeps
+at their addresses for as long as the cache lives, so its state goes
+from one replay to the next without a copy or a host round trip. Its
+first step runs eagerly, its second is captured and replayed, and every
+later one is replayed: within one call, since the caller knows that the
+step repeats. Such a cache (loop_cache) lives for one call of the loop,
+and captures through its device's loop_graphs: one side stream and one
+memory pool for every loop of the process, so that a capture takes the
+blocks that earlier ones freed (the allocator hands a block only to the
+stream that freed it) and the pool grows to the largest step's working
+set, once a process.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 from typing import Callable, Sequence
 
 import torch
+from torch.profiler import record_function
+
+# the profiler scopes of a loop's steps (step, loop_step), by which a
+# trace tells the host's launches of eager, captured and replayed steps
+# apart (scripts/bench_graph_post.py)
+STEP_SCOPES = {k: f"loop step: {k}" for k in ("eager", "capture", "replay")}
 
 
 def tensor_signature(t: torch.Tensor) -> tuple:
@@ -71,9 +92,16 @@ class CudaGraphs:
     def __init__(self):
         self.pool = None
         self.stream = None
+        # the last graph captured, kept so that the pool outlives the
+        # graphs of the caches that capture through this object
+        # (loop_graphs): a pool that no graph holds is released, and
+        # cannot be captured into again
+        self.last = None
+        self.grown = 0      # bytes the captures added to the pool
 
-    def eager(self, fn: Callable, inputs: list) -> dict:
-        with torch.cuda.device(inputs[0].device):
+    def eager(self, fn: Callable, inputs: list, device=None) -> dict:
+        with torch.cuda.device(device if device is not None
+                               else inputs[0].device):
             if self.stream is None:
                 self.stream = torch.cuda.Stream()
             main = torch.cuda.current_stream()
@@ -83,23 +111,44 @@ class CudaGraphs:
             main.wait_stream(self.stream)
         return out
 
-    def capture(self, fn: Callable, inputs: list) -> tuple:
-        """(replay, static outputs, bytes the pool grew by)."""
-        device = inputs[0].device
+    def capture(self, fn: Callable, inputs: list, device=None,
+                generator: torch.Generator | None = None) -> tuple:
+        """(replay, static outputs, bytes the pool grew by). A generator
+        that the step draws from is registered with the graph, so that
+        each replay advances its Philox offset as an eager run would."""
+        device = device if device is not None else inputs[0].device
         with torch.cuda.device(device):
             if self.pool is None:
                 self.pool = torch.cuda.graph_pool_handle()
-            # torch.cuda.graph empties the allocator's cache before it
-            # captures; emptying it first makes the reserved bytes after
-            # the capture differ from those before by the pool's growth
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
+            if self.stream is None:
+                self.stream = torch.cuda.Stream()
+            # what torch.cuda.graph does, without emptying the
+            # allocator's cache first (which would free its blocks, to
+            # be allocated again after the capture: a cost that every
+            # loop's capture would pay). A capture allocates in the
+            # graphs' private pool only, so the reserved bytes grow by
+            # the pool's growth.
             before = torch.cuda.memory_reserved()
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=self.pool,
-                                  capture_error_mode="thread_local"):
-                out = fn(inputs)
+            if generator is not None:
+                graph.register_generator_state(generator)
+            main = torch.cuda.current_stream()
+            self.stream.wait_stream(main)
+            with torch.cuda.stream(self.stream):
+                graph.capture_begin(pool=self.pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    out = fn(inputs)
+                except BaseException:
+                    # end the failed capture; its error is fn's
+                    with contextlib.suppress(RuntimeError):
+                        graph.capture_end()
+                    raise
+                graph.capture_end()
+            main.wait_stream(self.stream)
             grown = torch.cuda.memory_reserved() - before
+            self.grown += grown
+            self.last = graph
 
         def replay():
             with torch.cuda.device(device):
@@ -118,8 +167,9 @@ class _Entry:
 
 class GraphCache:
     """Captured steps by signature. `graphs` does the device's part
-    (`eager(fn, inputs)`, `capture(fn, static_inputs)`); the default is
-    CudaGraphs, and a test passes a stand-in that runs on the CPU."""
+    (`eager(fn, inputs, device=None)`, `capture(fn, static_inputs,
+    device=None, generator=None)`); the default is CudaGraphs, and a
+    test passes a stand-in that runs on the CPU."""
 
     def __init__(self, counters: Sequence = (), graphs=None):
         self.counters = list(counters)
@@ -141,8 +191,50 @@ class GraphCache:
             return self.graphs.eager(fn, inputs)
         entry = self._entries.get(key)
         if entry is None:
-            entry = self._entries[key] = self._capture(key, st, fn, inputs)
+            static = [torch.empty_like(t) for t in inputs]
+            entry = self._entries[key] = self._capture(
+                st, lambda: self.graphs.capture(fn, static), static)
         torch._foreach_copy_(entry.inputs, list(inputs))
+        self._replay(st, entry)
+        while len(entry.ring) < ring:
+            entry.ring.appendleft({k: torch.empty_like(v)
+                                   for k, v in entry.outputs.items()})
+        slot = entry.ring.popleft()
+        torch._foreach_copy_(list(slot.values()),
+                             [entry.outputs[k] for k in slot])
+        entry.ring.append(slot)
+        return dict(slot)
+
+    def step(self, key, fn: Callable, device, label: str | None = None,
+             generator: torch.Generator | None = None) -> None:
+        """One step of a loop: fn() updates in place tensors that the
+        caller keeps alive at their addresses while this cache lives.
+        The signature's first step runs eagerly, its second is captured
+        (a `generator` that fn draws from is registered with the graph)
+        and replayed, every later one replayed."""
+        st = self.stats.get(key)
+        if st is None:
+            st = self.stats[key] = SignatureStats(label or repr(key))
+            st.eager += 1
+            with record_function(STEP_SCOPES["eager"]):
+                self.graphs.eager(lambda _: fn(), [], device=device)
+            return
+        entry = self._entries.get(key)
+        if entry is None:
+            with record_function(STEP_SCOPES["capture"]):
+                entry = self._entries[key] = self._capture(
+                    st, lambda: self.graphs.capture(
+                        lambda _: fn() or {}, [], device=device,
+                        generator=generator), [])
+        with record_function(STEP_SCOPES["replay"]):
+            self._replay(st, entry)
+
+    def drop(self, key) -> None:
+        """Forget the graph of `key` (its stats stay): a loop that is
+        done with a signature frees its graph."""
+        self._entries.pop(key, None)
+
+    def _replay(self, st: SignatureStats, entry: "_Entry") -> None:
         try:
             entry.replay()
         except RuntimeError as e:
@@ -153,22 +245,13 @@ class GraphCache:
                 for _ in range(n):
                     counter.add(shape_key)
         st.replays += 1
-        while len(entry.ring) < ring:
-            entry.ring.appendleft({k: torch.empty_like(v)
-                                   for k, v in entry.outputs.items()})
-        slot = entry.ring.popleft()
-        torch._foreach_copy_(list(slot.values()),
-                             [entry.outputs[k] for k in slot])
-        entry.ring.append(slot)
-        return dict(slot)
 
-    def _capture(self, key, st: SignatureStats, fn: Callable,
-                 inputs: list) -> _Entry:
-        static = [torch.empty_like(t) for t in inputs]
+    def _capture(self, st: SignatureStats, capture: Callable,
+                 static: list) -> _Entry:
         before = [dict(c.by_shape) for c in self.counters]
         t0 = time.perf_counter()
         try:
-            replay, outputs, pool_bytes = self.graphs.capture(fn, static)
+            replay, outputs, pool_bytes = capture()
         except RuntimeError as e:
             raise RuntimeError(f"capture of the step {st.label} failed: "
                                f"{e}") from e
@@ -193,3 +276,45 @@ def stats_totals(stats) -> dict:
             "replays": sum(s.replays for s in sts),
             "capture_seconds": sum(s.capture_seconds for s in sts),
             "pool_bytes": sum(s.pool_bytes for s in sts)}
+
+
+# the loops' CudaGraphs, by device index (loop_graphs)
+_LOOP_GRAPHS: dict = {}
+
+
+def loop_graphs(device) -> CudaGraphs:
+    """The CudaGraphs through which every loop's cache on `device`
+    captures: one side stream and one memory pool, kept for the process
+    (it keeps its last graph). A capture reuses what earlier captures
+    freed in the pool, so the pool holds the largest loop step's working
+    set, not one per graph; a replay's intermediates live there too, so
+    loops run one at a time on a device (one loop's graphs replay only
+    while it runs, as the quant's stages do)."""
+    device = torch.device(device)
+    idx = (device.index if device.index is not None
+           else torch.cuda.current_device())
+    graphs = _LOOP_GRAPHS.get(idx)
+    if graphs is None:
+        graphs = _LOOP_GRAPHS[idx] = CudaGraphs()
+    return graphs
+
+
+def loop_cache(device) -> GraphCache | None:
+    """A GraphCache for one call of a loop on `device`, capturing through
+    loop_graphs; None on the CPU, where the loop runs its eager body."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return GraphCache(graphs=loop_graphs(device))
+
+
+def loop_step(cache: GraphCache | None, key, fn: Callable, device,
+              label: str | None = None,
+              generator: torch.Generator | None = None) -> None:
+    """cache.step(...), or fn() itself where there is no cache: the
+    eager body, which the CPU runs as its plain version."""
+    if cache is None:
+        with record_function(STEP_SCOPES["eager"]):
+            fn()
+    else:
+        cache.step(key, fn, device, label, generator)

@@ -24,6 +24,12 @@ run of its own: the human-scale set takes minutes to make and index):
       salmon_tpu_torch.scripts.bench_graph_step on the human-scale index
       and the cache's reads (8 batches of 4,096 a mode: the eager step
       against its CUDA graph)
+  python tools/runs_at_size.py graph-post [--work DIR]
+      the human-scale index and its reads (BENCH_BUILD_HS=1 python -m
+      salmon_tpu_torch.bench into DIR/cache), then python -m
+      salmon_tpu_torch.scripts.bench_graph_post --steps
+      em,bootstrap,gibbs,bias on them: a paired --seqBias --gcBias
+      quant, then each post-mapping loop eager against its CUDA graphs
 
 DIR (--work) defaults to a new directory under the temporary directory
 (TMPDIR), so that two runs never share their files. Each prints the
@@ -208,10 +214,28 @@ def graph_step_run(args, logs: str) -> dict:
     return rec
 
 
+def graph_post_run(args, logs: str) -> dict:
+    cache = os.path.join(args.work, "cache")
+    sec, out = _run([sys.executable, "-m", "salmon_tpu_torch.bench"],
+                    os.path.join(logs, "bench_hs.log"), BENCH_BUILD_HS="1",
+                    BENCH_CACHE=cache)
+    rec = {"bench": {"seconds": sec, "line": _json_lines(out)[-1]}}
+    sec, out = _run([sys.executable, "-m",
+                     "salmon_tpu_torch.scripts.bench_graph_post", "--index",
+                     os.path.join(cache, "hs_idx"), "-1",
+                     os.path.join(cache, "reads_1.fastq"), "-2",
+                     os.path.join(cache, "reads_2.fastq"), "--steps",
+                     "em,bootstrap,gibbs,bias"],
+                    os.path.join(logs, "bench_graph_post.log"))
+    rec["graph_post"] = {"seconds": sec, "line": _json_lines(out)[-1]}
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python tools/runs_at_size.py")
     ap.add_argument("run", choices=("quant-window", "alignment",
-                                    "multihost", "sims", "graph-step"))
+                                    "multihost", "sims", "graph-step",
+                                    "graph-post"))
     ap.add_argument("reps", nargs="?", type=int, default=80)
     ap.add_argument("--work", default=None,
                     help="where the runs' files go (default: a new "
@@ -236,7 +260,8 @@ def main(argv=None) -> int:
     os.makedirs(args.logs, exist_ok=True)
     run = {"quant-window": quant_window_run, "alignment": alignment_run,
            "multihost": multihost_run, "sims": sims_run,
-           "graph-step": graph_step_run}[args.run]
+           "graph-step": graph_step_run,
+           "graph-post": graph_post_run}[args.run]
     t0 = time.perf_counter()
     rec = {"run": args.run, **run(args, args.logs),
            "total_seconds": time.perf_counter() - t0,
