@@ -137,7 +137,22 @@ Phases, one line each; any failure raises and exits non-zero:
                banded_dp once a batch, mapped fraction >= 0.99,
                NumReads Spearman at the sparse gate; the sample pairs
                at 2 shards on the golden partitioned index, eq classes
-               equal to the port's CPU run of the module
+               equal to the port's CPU run of the module; B1 and B2 run
+               through their CUDA graphs
+     rest    — the last compiled programs against their eager bodies
+               (scripts/bench_graph_rest.py): `-a` on phase 5's BAM
+               (the error model's five steps), `sharded2` (2 ranks
+               sharing the card over gloo: the sharded step's graphs on
+               both sides of the hit all-gather) and config 5 at 2
+               shards on the `sharded2-decoy` index, each eager and
+               graphed in turns, then profiled: the error model's keys
+               and log-likelihoods exact and its counts within rtol
+               1e-5, the sharded step's integer outputs exact and float
+               ones within rtol 1e-5, config 5's eq classes exact and
+               weights within rtol 1e-5, every graphed run captured and
+               replayed; wall, device busy, host-issued launches a
+               batch, idle share, captures, replays and capture seconds
+               of each side
      harness — the port's throughput harnesses on phase 5's set and
                index, each in processes of its own on the card:
                quant_window for 300 s with --progressUpdateMs 0 (exit 0,
@@ -178,7 +193,8 @@ JSON line (one record per host function: its seconds, the plain
 version's and the problem size), the bench JSON line (the harness's
 record), the config5 JSON line (each run's report, the device bytes of
 each shard's planes, the seconds of load, B1, B2 and the EM), the
-harness JSON line (each harness's record and seconds), the sims JSON
+harness JSON line (each harness's record and seconds), the rest JSON
+line (each run's record of the rest phase), the sims JSON
 line (each metric beside its gate or the JAX package's value, the
 banded_dp launches and seconds of each simulation), the graph JSON line
 (each mode's record of the graph phase), the post JSON line (each
@@ -1986,6 +2002,35 @@ def post_phase(syn: str) -> list:
     return recs
 
 
+def rest_phase(syn: str, decoy_idx: str) -> list:
+    """The error model of `-a`, the sharded step and config 5's B1 and B2,
+    eager against their CUDA graphs on phase 5's set, BAM and indexes
+    (salmon_tpu_torch.scripts.bench_graph_rest; the checks are its own).
+    Returns its records."""
+    from salmon_tpu_torch.scripts import bench_graph_rest
+
+    r1, r2 = (os.path.join(syn, f"reads_{i}.fastq") for i in (1, 2))
+    t0 = time.perf_counter()
+    recs = bench_graph_rest.run(
+        bench_graph_rest.RUNS, os.path.join(syn, "idx"), r1, r2,
+        os.path.join(syn, "aln.bam"), os.path.join(syn, "txome.fasta"),
+        decoy_idx, work=syn)
+    for rec in recs:
+        e, g = rec["eager"], rec["graph"]
+        phase("rest", f"{rec['run']} ({rec['batches']} batches): wall "
+              f"{e['wall_s']!r} -> {g['wall_s']!r} s, the graphed part "
+              f"{e['part_s']!r} -> {g['part_s']!r} s; device busy "
+              f"{e['busy_s']!r} -> {g['busy_s']!r} s; host-issued launches "
+              f"a batch {e['launches_per_batch']!r} -> "
+              f"{g['launches_per_batch']!r}; idle {e['idle']!r} -> "
+              f"{g['idle']!r}; graphs: {g['signatures']} signatures, "
+              f"{g['eager']} eager, {g['captures']} captured in "
+              f"{g['capture_seconds']!r} s, {g['replays']} replayed, pool "
+              f"{g['pool_bytes']} bytes; checks {rec['check']}")
+    phase("rest", f"{time.perf_counter() - t0:.1f} s")
+    return recs
+
+
 def sam_fragments(path: str) -> tuple:
     """(paired fragments, orphan fragments, records) of a --writeMappings
     SAM: a paired fragment has two records flagged 0x1, an orphan (or
@@ -3266,6 +3311,7 @@ def main() -> int:
         multi = scale_multi_phase(syn, rho_sec)
         decoy_idx = scale_decoy_phase(syn, multi["sharded2-gloo"])
         config5 = config5_phase(decoy_idx, syn, ptl)
+        rest = rest_phase(syn, decoy_idx)
         harness = harness_phase(syn)
         sims = sims_phase(tmp)
         records[MAIN_BW]["launches"] = runs["paired"][MAIN_BW]
@@ -3284,6 +3330,7 @@ def main() -> int:
     print(json.dumps({"sims": sims}))
     print(json.dumps({"graph": graph}))
     print(json.dumps({"post": post}))
+    print(json.dumps({"rest": rest}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,6 +41,7 @@ from salmon_tpu_torch.models.bias_correct import BiasState
 from salmon_tpu_torch.models.efflen import effective_lengths
 from salmon_tpu_torch.models.fld import FragmentLengthDistribution
 from salmon_tpu_torch.utils import libformat
+from salmon_tpu_torch.utils.graphcache import stats_totals
 
 logger = logging.getLogger("salmon_tpu_torch")
 
@@ -349,8 +350,10 @@ def quantify_alignments(args, opts, cmd_args, device) -> int:
     device work on `device`. Logs its stage clocks with
     extra={"clocks": ...}: bam_read_seconds, errmodel_seconds,
     em_seconds, with a bias flag bias_collect_seconds and the pass and
-    second-EM clocks, and host_path_records (error-model records that
-    took the numpy walk)."""
+    second-EM clocks, host_path_records (error-model records that
+    took the numpy walk) and errmodel_graph_* (the error model's
+    compiled steps: signatures, eager runs, captures, replays, capture
+    seconds, pool bytes)."""
     t0 = time.time()
     device = torch.device(device)
     if not args.targets:
@@ -622,6 +625,11 @@ def quantify_alignments(args, opts, cmd_args, device) -> int:
             clocks["em2_seconds"] = time.perf_counter() - t_em2
     clocks["em_seconds"] = time.perf_counter() - t_em
     clocks.update(em_mod.loop_clocks(em_runs))
+    # the error model's compiled steps (their graphs on the card; the
+    # sampler's later calls not yet counted)
+    clocks.update({f"errmodel_graph_{k}": v for k, v in stats_totals(
+        err.graphs.stats.values() if err is not None and err.graphs
+        else ()).items()})
     logger.info("alignment-mode clocks (s): %s", clocks,
                 extra={"clocks": clocks})
     counts = res["alphas"]

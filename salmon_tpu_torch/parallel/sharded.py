@@ -22,6 +22,15 @@ Seeding equals the single-device sparse flow's at any hit budget: each
 shard collects up to the per-end budget, a superset of the global kept
 set, since each window's occurrences live in its one owner shard, and
 rebudget_hits re-applies the budget over the union.
+
+sharded_map_paired / sharded_map_single are the counterparts of the JAX
+package's jitted sharded step. On the card each is two captured CUDA
+graphs per signature (utils.graphcache, in the index's cache of
+mapping.pipeline.graph_cache): A, the seeds and the hit list before the
+all-gather, and B, the ranking and the mapping of the rank's block after
+it; the gather runs between them (over gloo it goes through the host,
+which a graph cannot capture), and the statistics' all-reduce after B.
+`*_impl` is the eager step, which CPU tensors run.
 """
 
 from __future__ import annotations
@@ -35,9 +44,12 @@ from salmon_tpu_torch.index.builder import TranscriptomeIndex
 from salmon_tpu_torch.index.shard import shard_index_arrays
 from salmon_tpu_torch.mapping.lookup import mix32b
 from salmon_tpu_torch.mapping.pipeline import (MapperConfig, _end_seeds,
+                                               _fld_parts,
                                                device_index_tensors,
+                                               graph_cache,
                                                map_paired_from_cands,
-                                               map_single_from_cands)
+                                               map_single_from_cands,
+                                               row_pool_env, step_signature)
 from salmon_tpu_torch.mapping.score import (candidate_read_start,
                                             diag_bucket_bits_for,
                                             window_bits_for)
@@ -45,6 +57,11 @@ from salmon_tpu_torch.mapping.seed_sparse import (collect_hits_sparse,
                                                   rank_hits, rebudget_hits)
 from salmon_tpu_torch.parallel.distributed import World
 from salmon_tpu_torch.parallel.quant_step import merge_stats
+from salmon_tpu_torch.utils.graphcache import GraphCache, tensor_signature
+
+# the read ends of a paired and of a single-end batch: (codes, lengths)
+_ENDS = {"paired": (("codes_l", "lengths_l"), ("codes_r", "lengths_r")),
+         "single": (("codes", "lengths"),)}
 
 
 def device_sharded_index(idx: TranscriptomeIndex, world: World,
@@ -92,41 +109,56 @@ def sub_block(a: torch.Tensor, s: int, n_blocks: int) -> torch.Tensor:
     return a[s * sub:(s + 1) * sub]
 
 
-def _sharded_cands(world: World, ends_cl, dev: dict, cfg: MapperConfig,
-                   shard_bits: int):
-    """Seed candidates against the local shard, hits all-gathered over
-    the reads group, ranked, and this rank's row block taken.
+def n_windows(L: int, cfg: MapperConfig) -> int:
+    """Seed windows a read end of width L queries (P of _end_seeds)."""
+    return -(-(L - cfg.k + 1) // cfg.kmer_stride)
 
-    ends_cl: (codes, lengths) per read end, all R rows of the group's
-    chunk. Returns [(cand, start)] per end over the rank's R / S rows."""
-    n_shards = 1 << shard_bits
-    _, s, _ = world.layout(n_shards)
-    seeded = [_local_seeds(c, ln, dev, cfg, shard_bits, s)
-              for c, ln in ends_cl]
-    R, P = seeded[0][1][0].shape
+
+def _seed_hits(kind: str, batch: dict, dev: dict, cfg: MapperConfig,
+               shard_bits: int, s: int) -> torch.Tensor:
+    """The step before the all-gather: seeds against the local shard
+    and their budgeted hit list, its four (H,) planes packed as one
+    (H, 4) int64 tensor. batch: all R rows of the group's chunk."""
+    seeded = [_local_seeds(batch[c], batch[ln], dev, cfg, shard_bits, s)
+              for c, ln in _ENDS[kind]]
+    P = seeded[0][1][0].shape[1]
     hits = collect_hits_sparse(
         seeded, dev["occ_oct"], occ_cap=cfg.occ_cap,
         max_occs_per_hit=cfg.max_occs_per_hit,
         hits_per_end=cfg.seed_hits_per_end, stride=cfg.kmer_stride,
         diag_bucket_bits=diag_bucket_bits_for(cfg.max_tpos,
                                               window_bits_for(P)))
-    # one gather of the four (H,) planes; concatenated in kmer-index
-    # order like the JAX package's all_gather(..., tiled=True)
-    packed = torch.stack([h.to(torch.int64) for h in hits], dim=1)
+    return torch.stack([h.to(torch.int64) for h in hits], dim=1)
+
+
+def _gather_hits(world: World, packed: torch.Tensor,
+                 n_shards: int) -> torch.Tensor:
+    """The reads group's hit lists, concatenated in kmer-index order
+    like the JAX package's all_gather(..., tiled=True)."""
     group = world.kmer_group(n_shards)
     with world.timed("hit_allgather"):
-        packed = world.all_gather_cat(packed, group)
+        return world.all_gather_cat(packed, group)
+
+
+def _map_from_hits(kind: str, packed, bsub: dict, dev: dict,
+                   cfg: MapperConfig, fld, compat, s: int, n_shards: int,
+                   R: int, P: int) -> dict:
+    """The step after the all-gather: the group's hits re-budgeted and
+    ranked, this rank's row block of candidates taken (sub_block) and
+    mapped. bsub: the rank's block of the batch."""
     hits = (packed[:, 0], packed[:, 1], packed[:, 2],
             packed[:, 3].to(torch.int32))
     hits = rebudget_hits(hits, P=P, hits_per_end=cfg.seed_hits_per_end)
-    cands = rank_hits(hits, R=R, E=len(seeded), P=P,
-                      max_cands=cfg.max_cands)
+    ends = _ENDS[kind]
+    cands = rank_hits(hits, R=R, E=len(ends), P=P, max_cands=cfg.max_cands)
     out = []
-    for cand, (_, lengths) in zip(cands, ends_cl):
+    for cand, (_, ln) in zip(cands, ends):
         cand_sub = {k: sub_block(v, s, n_shards) for k, v in cand.items()}
-        out.append((cand_sub, candidate_read_start(
-            cand_sub, sub_block(lengths, s, n_shards), cfg.k)))
-    return out
+        out.append((cand_sub, candidate_read_start(cand_sub, bsub[ln],
+                                                   cfg.k)))
+    if kind == "paired":
+        return map_paired_from_cands(out, bsub, dev, cfg, fld, *compat)
+    return map_single_from_cands(out, bsub, dev, cfg, fld, *compat)
 
 
 def _check_rows(R: int, n_shards: int) -> None:
@@ -135,33 +167,119 @@ def _check_rows(R: int, n_shards: int) -> None:
                          f"devices")
 
 
+def _sharded_impl(kind: str, world: World, batch: dict, dev: dict,
+                  cfg: MapperConfig, shard_bits: int, fld,
+                  compat: tuple) -> dict:
+    n_shards = 1 << shard_bits
+    ends = _ENDS[kind]
+    R, L = batch[ends[0][0]].shape
+    _check_rows(R, n_shards)
+    s = world.layout(n_shards)[1]
+    packed = _gather_hits(
+        world, _seed_hits(kind, batch, dev, cfg, shard_bits, s), n_shards)
+    bsub = {k: sub_block(v, s, n_shards) for k, v in batch.items()}
+    return merge_stats(world, _map_from_hits(
+        kind, packed, bsub, dev, cfg, fld, compat, s, n_shards, R,
+        n_windows(L, cfg)))
+
+
+def _graphed(kind: str, world: World, batch: dict, dev: dict,
+             cfg: MapperConfig, shard_bits: int, fld, compat: tuple,
+             in_flight: int, cache: GraphCache) -> dict:
+    """_sharded_impl through two graphs of `cache` per signature, A
+    (_seed_hits) and B (_map_from_hits), with the all-gather between
+    their replays and merge_stats after B. A signature holds what
+    pipeline.step_signature holds (the index tensors' addresses among
+    it), the shard count, the rank's kmer index and the row and window
+    counts. B's outputs of the `in_flight` calls of its signature before
+    this one stay readable."""
+    n_shards = 1 << shard_bits
+    ends = _ENDS[kind]
+    R, L = batch[ends[0][0]].shape
+    _check_rows(R, n_shards)
+    s = world.layout(n_shards)[1]
+    P = n_windows(L, cfg)
+    names = sorted(batch)
+    where = (kind, shard_bits, s, R, P)
+
+    def seeds(ts):
+        return {"packed": _seed_hits(kind, dict(zip(names, ts)), dev, cfg,
+                                     shard_bits, s)}
+
+    key_a = ("sharded seeds", where,
+             tuple((k, tensor_signature(batch[k])) for k in names),
+             tuple((k, v.data_ptr(), tensor_signature(v))
+                   for k, v in sorted(dev.items())), cfg, row_pool_env())
+    packed = cache.run(key_a, seeds, [batch[k] for k in names],
+                       label=f"sharded seeds {kind} R={R} L={L} "
+                             f"shards={n_shards} s={s}")["packed"]
+    packed = _gather_hits(world, packed, n_shards)
+
+    bsub = {k: sub_block(v, s, n_shards) for k, v in batch.items()}
+    mode, fld_t = _fld_parts(fld)
+    nb, nf = len(names), len(fld_t)
+
+    def mapped(ts):
+        f = ({"logpmf": ts[1 + nb], "logcmf": ts[2 + nb], "mode": mode}
+             if mode is not None else ts[1 + nb])
+        return _map_from_hits(kind, ts[0], dict(zip(names, ts[1:1 + nb])),
+                              dev, cfg, f, ts[1 + nb + nf:], s, n_shards, R,
+                              P)
+
+    key_b = ("sharded map", where,
+             step_signature(kind, bsub, dev, cfg, fld, compat),
+             tensor_signature(packed))
+    out = cache.run(key_b, mapped,
+                    [packed] + [bsub[k] for k in names] + fld_t
+                    + list(compat), ring=in_flight + 1,
+                    label=f"sharded map {kind} R={R} L={L} "
+                          f"shards={n_shards} s={s} fld_mode={mode}")
+    return merge_stats(world, out)
+
+
+def sharded_map_paired_impl(world: World, batch: dict, dev: dict,
+                            cfg: MapperConfig, shard_bits: int, fld,
+                            compat_paired, compat_orphan) -> dict:
+    """Map one paired chunk of the reads group with the index sharded
+    over the group, eagerly. Returns the outputs of the rank's row block
+    (see sub_block), statistics summed over the world. Rows must divide
+    by the shard count."""
+    return _sharded_impl("paired", world, batch, dev, cfg, shard_bits, fld,
+                         (compat_paired, compat_orphan))
+
+
+def sharded_map_single_impl(world: World, batch: dict, dev: dict,
+                            cfg: MapperConfig, shard_bits: int, fld,
+                            compat_single) -> dict:
+    """sharded_map_paired_impl for a single-end chunk."""
+    return _sharded_impl("single", world, batch, dev, cfg, shard_bits, fld,
+                         (compat_single,))
+
+
 def sharded_map_paired(world: World, batch: dict, dev: dict,
                        cfg: MapperConfig, shard_bits: int, fld,
-                       compat_paired, compat_orphan) -> dict:
-    """Map one paired chunk of the reads group with the index sharded
-    over the group. Returns the outputs of the rank's row block (see
-    sub_block), statistics summed over the world. Rows must divide by
-    the shard count."""
-    n_shards = 1 << shard_bits
-    _check_rows(batch["lengths_l"].shape[0], n_shards)
-    cands = _sharded_cands(world, [(batch["codes_l"], batch["lengths_l"]),
-                                   (batch["codes_r"], batch["lengths_r"])],
-                           dev, cfg, shard_bits)
-    s = world.layout(n_shards)[1]
-    bsub = {k: sub_block(v, s, n_shards) for k, v in batch.items()}
-    return merge_stats(world, map_paired_from_cands(
-        cands, bsub, dev, cfg, fld, compat_paired, compat_orphan))
+                       compat_paired, compat_orphan, *,
+                       in_flight: int = 1) -> dict:
+    """sharded_map_paired_impl, compiled: on CUDA tensors through the
+    two graphs of its signature (_graphed; the first batch of a
+    signature eager, the second captured, every later one replayed),
+    on CPU tensors the eager step itself. On the card the outputs of the
+    `in_flight` calls of the same signature before this one stay
+    readable; older ones are overwritten."""
+    if not batch["codes_l"].is_cuda:
+        return sharded_map_paired_impl(world, batch, dev, cfg, shard_bits,
+                                       fld, compat_paired, compat_orphan)
+    return _graphed("paired", world, batch, dev, cfg, shard_bits, fld,
+                    (compat_paired, compat_orphan), in_flight,
+                    graph_cache(dev))
 
 
 def sharded_map_single(world: World, batch: dict, dev: dict,
                        cfg: MapperConfig, shard_bits: int, fld,
-                       compat_single) -> dict:
-    """sharded_map_paired for a single-end chunk."""
-    n_shards = 1 << shard_bits
-    _check_rows(batch["lengths"].shape[0], n_shards)
-    cands = _sharded_cands(world, [(batch["codes"], batch["lengths"])],
-                           dev, cfg, shard_bits)
-    s = world.layout(n_shards)[1]
-    bsub = {k: sub_block(v, s, n_shards) for k, v in batch.items()}
-    return merge_stats(world, map_single_from_cands(
-        cands, bsub, dev, cfg, fld, compat_single))
+                       compat_single, *, in_flight: int = 1) -> dict:
+    """sharded_map_single_impl, compiled as sharded_map_paired is."""
+    if not batch["codes"].is_cuda:
+        return sharded_map_single_impl(world, batch, dev, cfg, shard_bits,
+                                       fld, compat_single)
+    return _graphed("single", world, batch, dev, cfg, shard_bits, fld,
+                    (compat_single,), in_flight, graph_cache(dev))

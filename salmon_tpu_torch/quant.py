@@ -498,12 +498,13 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
         return torch.from_numpy(a).to(device)
 
     def map_batch(batch, fld_in):
-        if shard_bits:
-            fn = sharded_map_paired if paired else sharded_map_single
-            return fn(world, batch, dev, cfg, shard_bits, fld_in, *compat)
-        fn = map_paired_batch if paired else map_single_batch
         # the outputs of `depth` batches wait for consume while the next
         # one maps
+        if shard_bits:
+            fn = sharded_map_paired if paired else sharded_map_single
+            return fn(world, batch, dev, cfg, shard_bits, fld_in, *compat,
+                      in_flight=depth)
+        fn = map_paired_batch if paired else map_single_batch
         out = fn(batch, dev, cfg, fld_in, *compat, in_flight=depth)
         return merge_stats(world, out) if multi else out
 

@@ -22,6 +22,12 @@ Both passes score with the uniform pre-burn-in FLD and library IU (the
 online FLD needs batches finished in order). Prints one JSON line with
 the counterpart's twelve keys.
 
+B1's shard_hits and B2's map_batch are the counterparts of the
+counterpart's two jitted steps: each `*_impl` is the eager body, and
+each entry runs it through one captured CUDA graph per signature of a
+GraphCache (utils.graphcache) on the card, or runs it itself on CPU
+tensors without a cache. A shard's B1 graphs are dropped after its pass.
+
 Usage: python -m salmon_tpu_torch.scripts.demo_config5_quant
        [n_shards] [max_frags]
 Env: BENCH_CACHE (genome_idx and reads), CONFIG5_IDX, CONFIG5_R1,
@@ -40,6 +46,9 @@ import numpy as np
 import torch
 
 from salmon_tpu_torch.scripts import cache_dir, require_device
+from salmon_tpu_torch.utils.graphcache import (GraphCache, run_compiled,
+                                               stats_totals,
+                                               tensor_signature)
 
 R = 16384
 # the VBEM of the counterpart: per-transcript prior, tolerance, limits
@@ -53,7 +62,8 @@ def log(m):
 @dataclasses.dataclass
 class Config5Run:
     """A run's JSON report, its eq classes and alphas, the seconds of
-    each phase and the device bytes of each shard's planes."""
+    each phase with the B1 and B2 graph caches' counters (b1_graph_*,
+    b2_graph_*) and the device bytes of each shard's planes."""
     report: dict
     eq: object
     alphas: np.ndarray
@@ -108,6 +118,107 @@ def _batch_tensors(chunk, device) -> dict:
             "lengths_r": _put(chunk.right.lengths, device)}
 
 
+def _addresses(tensors: dict) -> tuple:
+    """What a graph that reads `tensors` in place fixes about them."""
+    return tuple((k, v.data_ptr(), tensor_signature(v))
+                 for k, v in sorted(tensors.items()))
+
+
+def shard_hits_impl(batch: dict, planes: dict, sid: int, cfg,
+                    shard_bits: int, dbb: int) -> tuple:
+    """B1's step: the batch's budgeted hit list against shard `sid`'s
+    planes (tab_rows, occ_oct), behind the owner mask: (rid, key, key2,
+    diag) planes."""
+    from salmon_tpu_torch.mapping.seed_sparse import collect_hits_sparse
+    from salmon_tpu_torch.parallel.sharded import _local_seeds
+
+    seeded = [_local_seeds(batch[f"codes_{e}"], batch[f"lengths_{e}"],
+                           planes, cfg, shard_bits, sid)
+              for e in ("l", "r")]
+    return collect_hits_sparse(
+        seeded, planes["occ_oct"], occ_cap=cfg.occ_cap,
+        max_occs_per_hit=cfg.max_occs_per_hit,
+        hits_per_end=cfg.seed_hits_per_end, stride=cfg.kmer_stride,
+        diag_bucket_bits=dbb)
+
+
+def shard_hits(batch: dict, planes: dict, sid: int, cfg, shard_bits: int,
+               dbb: int, cache: GraphCache | None = None) -> tuple:
+    """shard_hits_impl, compiled: its signature holds the shard, its
+    planes' addresses, the batch's shapes and the static values."""
+    names = sorted(batch)
+    key = ("b1", sid, tuple((k, tensor_signature(batch[k]))
+                            for k in names),
+           _addresses(planes), cfg, shard_bits, dbb)
+
+    def step(ts):
+        h = shard_hits_impl(dict(zip(names, ts)), planes, sid, cfg,
+                            shard_bits, dbb)
+        return {f"h{i}": x for i, x in enumerate(h)}
+
+    R, L = batch["codes_l"].shape
+    out = run_compiled(cache, key, step, [batch[k] for k in names],
+                       f"config 5 B1 shard {sid} R={R} L={L}")
+    return tuple(out[f"h{i}"] for i in range(4))
+
+
+def drop_shard(cache: GraphCache | None, sid: int) -> None:
+    """Free shard `sid`'s B1 graphs (their counters stay)."""
+    if cache is not None:
+        for key in list(cache.stats):
+            if key[:2] == ("b1", sid):
+                cache.drop(key)
+
+
+def map_batch_impl(batch: dict, hits, ctx: dict) -> dict:
+    """B2's step: the shards' hits concatenated in shard order, the
+    budget applied again, ranked, and mapped against the 2-bit genome
+    plane. hits: per shard its (rid, key, key2, diag) planes; ctx: the
+    run's P, R, cfg, dev2, fld_in and compat tables."""
+    from salmon_tpu_torch.mapping import pipeline as tpipe
+    from salmon_tpu_torch.mapping.score import candidate_read_start
+    from salmon_tpu_torch.mapping.seed_sparse import rank_hits, rebudget_hits
+
+    cfg, P = ctx["cfg"], ctx["P"]
+    merged = tuple(torch.cat([h[i] for h in hits]) for i in range(4))
+    merged = rebudget_hits(merged, P=P, hits_per_end=cfg.seed_hits_per_end)
+    cands_r = rank_hits(merged, R=ctx["R"], E=2, P=P,
+                        max_cands=cfg.max_cands)
+    cands = [(c, candidate_read_start(c, ln, cfg.k))
+             for c, ln in zip(cands_r, (batch["lengths_l"],
+                                        batch["lengths_r"]))]
+    return tpipe.map_paired_from_cands(cands, batch, ctx["dev2"], cfg,
+                                       ctx["fld_in"], ctx["cp"], ctx["co"])
+
+
+def map_batch(batch: dict, hits, ctx: dict,
+              cache: GraphCache | None = None) -> dict:
+    """map_batch_impl, compiled: its inputs are the batch and the
+    shards' hits; its signature holds their shapes, the static values
+    and the addresses of what it reads in place (dev2, the FLD, the
+    compat tables)."""
+    names = sorted(batch)
+    nb = len(names)
+    flat = [x for h in hits for x in h]
+    fld = ctx["fld_in"]
+    key = ("b2", tuple((k, tensor_signature(batch[k])) for k in names),
+           tuple(tensor_signature(x) for x in flat),
+           _addresses({**{f"dev2_{k}": v for k, v in ctx["dev2"].items()},
+                       "logpmf": fld["logpmf"], "logcmf": fld["logcmf"],
+                       "cp": ctx["cp"], "co": ctx["co"]}),
+           ctx["cfg"], ctx["P"], ctx["R"], fld["mode"])
+
+    def step(ts):
+        hs = [tuple(ts[nb + 4 * i:nb + 4 * i + 4])
+              for i in range(len(hits))]
+        return map_batch_impl(dict(zip(names, ts[:nb])), hs, ctx)
+
+    R, L = batch["codes_l"].shape
+    return run_compiled(cache, key, step,
+                        [batch[k] for k in names] + flat,
+                        f"config 5 B2 R={R} L={L} shards={len(hits)}")
+
+
 def run_vbem(eq, lengths: np.ndarray, device="cuda") -> tuple:
     """The counterpart's VBEM (fastem.optimize_routed) on `device`:
     effective lengths max(length - 200, 10), uniform initial alphas, a
@@ -131,27 +242,26 @@ def run_vbem(eq, lengths: np.ndarray, device="cuda") -> tuple:
 
 
 def quantify(idx_dir: str, r1: str, r2: str, n_shards: int,
-             max_frags: int, device="cuda") -> Config5Run:
-    """Phases A, B1, B2 and the EM on `device`."""
+             max_frags: int, device="cuda", caches=None) -> Config5Run:
+    """Phases A, B1, B2 and the EM on `device`. caches: the B1 and B2
+    GraphCaches (by default new ones on the card, none on the CPU)."""
     from salmon_tpu_torch.constants import SalmonDefaults
     from salmon_tpu_torch.index import diskfmt
     from salmon_tpu_torch.inference.eqclasses import \
         EquivalenceClassAccumulator
-    from salmon_tpu_torch.mapping.align import pack_seq4
-    from salmon_tpu_torch.mapping.pipeline import (MapperConfig, _SEQ4_SHIFT,
-                                                   map_paired_from_cands)
-    from salmon_tpu_torch.mapping.score import (candidate_read_start,
-                                                diag_bucket_bits_for,
+    from salmon_tpu_torch.mapping.align import BANDED_DP, pack_seq4
+    from salmon_tpu_torch.mapping.pipeline import MapperConfig, _SEQ4_SHIFT
+    from salmon_tpu_torch.mapping.score import (diag_bucket_bits_for,
                                                 window_bits_for)
-    from salmon_tpu_torch.mapping.seed_sparse import (collect_hits_sparse,
-                                                      rank_hits,
-                                                      rebudget_hits)
     from salmon_tpu_torch.models.fld import FragmentLengthDistribution
-    from salmon_tpu_torch.parallel.sharded import _local_seeds
     from salmon_tpu_torch.utils import libformat
 
     device = torch.device(device)
     opts = SalmonDefaults()
+    if caches is None:
+        caches = ((GraphCache(), GraphCache([BANDED_DP]))
+                  if device.type == "cuda" else (None, None))
+    b1_cache, b2_cache = caches
 
     # ---- phase A: streamed sharded load --------------------------------
     t0 = time.time()
@@ -180,16 +290,6 @@ def quantify(idx_dir: str, r1: str, r2: str, n_shards: int,
     P = (opts.max_read_len - cfg.k) // cfg.kmer_stride + 1
     dbb = diag_bucket_bits_for(cfg.max_tpos, window_bits_for(P))
 
-    def shard_hits(batch, dev_s, sid):
-        seeded = [_local_seeds(batch[f"codes_{e}"], batch[f"lengths_{e}"],
-                               dev_s, cfg, shard_bits, sid)
-                  for e in ("l", "r")]
-        return collect_hits_sparse(
-            seeded, dev_s["occ_oct"], occ_cap=cfg.occ_cap,
-            max_occs_per_hit=cfg.max_occs_per_hit,
-            hits_per_end=cfg.seed_hits_per_end, stride=cfg.kmer_stride,
-            diag_bucket_bits=dbb)
-
     batches = list(read_batches(r1, r2, R, max_frags))
     n_frags = sum(int((b.left.lengths > 0).sum()) for b in batches)
     log(f"# {len(batches)} batches, {n_frags} fragments")
@@ -198,14 +298,18 @@ def quantify(idx_dir: str, r1: str, r2: str, n_shards: int,
     # hits on the host as u32 (rid, key, key2) and i32 (diag) planes
     hits_host = [[None] * n_shards for _ in batches]
     for s, sh in enumerate(shards):
-        dev_s = {"tab_rows": _put(sh["tab_rows"], device),
-                 "occ_oct": _put(sh["occ_oct"], device)}
+        planes = {"tab_rows": _put(sh["tab_rows"], device),
+                  "occ_oct": _put(sh["occ_oct"], device)}
         for bi, b in enumerate(batches):
-            h = shard_hits(_batch_tensors(b, device), dev_s, s)
+            h = shard_hits(_batch_tensors(b, device), planes, s, cfg,
+                           shard_bits, dbb, cache=b1_cache)
             hits_host[bi][s] = tuple(
                 x.cpu().numpy().astype(np.uint32 if i < 3 else np.int32)
                 for i, x in enumerate(h))
-        del dev_s
+        # the shard's graphs go with its planes, so that the next
+        # shard's take their memory
+        drop_shard(b1_cache, s)
+        del planes
         log(f"#   shard {s} hits pass done ({time.time() - t0:.0f}s)")
     t_pass1 = time.time() - t0
 
@@ -222,32 +326,25 @@ def quantify(idx_dir: str, r1: str, r2: str, n_shards: int,
             "seq4": _put(words.view(np.int32), device)}
     del words
     fmt = libformat.parse_library_format("IU")
-    cp = _put(libformat.paired_compat_table(fmt), device)
-    co = _put(libformat.orphan_compat_table(fmt), device)
     fld = FragmentLengthDistribution(opts.max_frag_length)
-    fld_in = {"logpmf": _put(fld.log_pmf(), device, torch.float32),
-              "logcmf": _put(fld.log_cmf(), device, torch.float32),
-              "mode": 0}
-
-    def map_batch(batch, hits):
-        merged = tuple(
-            _put(np.concatenate([h[i] for h in hits]).astype(
-                np.int64 if i < 3 else np.int32), device)
-            for i in range(4))
-        merged = rebudget_hits(merged, P=P,
-                               hits_per_end=cfg.seed_hits_per_end)
-        cands_r = rank_hits(merged, R=R, E=2, P=P, max_cands=cfg.max_cands)
-        cands = [(c, candidate_read_start(c, ln, cfg.k))
-                 for c, ln in zip(cands_r, (batch["lengths_l"],
-                                            batch["lengths_r"]))]
-        return map_paired_from_cands(cands, batch, dev2, cfg, fld_in, cp,
-                                     co)
+    ctx = {"P": P, "R": R, "cfg": cfg, "dev2": dev2,
+           "fld_in": {"logpmf": _put(fld.log_pmf(), device, torch.float32),
+                      "logcmf": _put(fld.log_cmf(), device, torch.float32),
+                      "mode": 0},
+           "cp": _put(libformat.paired_compat_table(fmt), device),
+           "co": _put(libformat.orphan_compat_table(fmt), device)}
 
     acc = EquivalenceClassAccumulator()
     t0 = time.time()
     n_mapped = 0
     for bi, b in enumerate(batches):
-        out = map_batch(_batch_tensors(b, device), hits_host[bi])
+        # each shard's hits uploaded (the counterpart's jnp.asarray);
+        # their concatenation is the step's
+        hits = [tuple(_put(x.astype(np.int64 if i < 3 else np.int32),
+                           device) for i, x in enumerate(h))
+                for h in hits_host[bi]]
+        out = map_batch(_batch_tensors(b, device), hits, ctx,
+                        cache=b2_cache)
         acc.add_batch(out["eq_txp"].cpu().numpy(),
                       out["eq_weight"].cpu().numpy(),
                       out["eq_bins"].cpu().numpy()
@@ -276,9 +373,12 @@ def quantify(idx_dir: str, r1: str, r2: str, n_shards: int,
         "em_s": round(em_s, 1),
         "em_iters": em_iters,
     }
-    return Config5Run(report, eq, alphas,
-                      {"load_s": load_s, "b1_s": t_pass1, "b2_s": t_pass2,
-                       "em_s": em_s}, shard_bytes)
+    seconds = {"load_s": load_s, "b1_s": t_pass1, "b2_s": t_pass2,
+               "em_s": em_s}
+    for name, cache in (("b1", b1_cache), ("b2", b2_cache)):
+        seconds.update({f"{name}_graph_{k}": v for k, v in stats_totals(
+            cache.stats.values() if cache is not None else ()).items()})
+    return Config5Run(report, eq, alphas, seconds, shard_bytes)
 
 
 def main(argv=None, device="cuda") -> int:

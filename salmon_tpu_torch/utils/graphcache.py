@@ -13,8 +13,9 @@ A signature's life:
      once (a short last chunk, a one-off call) is never captured, and
      the run warms what capture needs warm (cub's sort workspaces, the
      kernels' lazy module loads).
-  2. second batch: static input tensors are made, the step is captured
-     into a graph reading them, and the graph is replayed on this batch.
+  2. second batch: static input tensors are made (copies of this
+     batch), the step is captured into a graph reading them, and the
+     graph is replayed on this batch.
   3. every batch from then on: the batch is copied into the static
      inputs (`_foreach_copy_`) and the graph replayed.
 A replay overwrites the graph's static outputs, so each replay's outputs
@@ -191,7 +192,9 @@ class GraphCache:
             return self.graphs.eager(fn, inputs)
         entry = self._entries.get(key)
         if entry is None:
-            static = [torch.empty_like(t) for t in inputs]
+            # the static inputs hold this batch while it is captured, so
+            # that what runs at capture (a stand-in's step) sees real data
+            static = [t.clone() for t in inputs]
             entry = self._entries[key] = self._capture(
                 st, lambda: self.graphs.capture(fn, static), static)
         torch._foreach_copy_(entry.inputs, list(inputs))
@@ -265,6 +268,20 @@ class GraphCache:
         st.pool_bytes += pool_bytes
         return _Entry(static, dict(outputs), replay, delta,
                       collections.deque())
+
+
+def run_compiled(cache: GraphCache | None, key, fn: Callable,
+                 inputs: list, label: str) -> dict:
+    """fn(inputs) -> dict of tensors as a compiled step: through the
+    graph of `key` in `cache`, or, without a cache, fn itself on CPU
+    tensors (its plain version). A step on the card needs a cache: there
+    is no eager path there."""
+    if cache is None:
+        if inputs[0].is_cuda:
+            raise ValueError(f"{label} runs on the card through a "
+                             f"GraphCache")
+        return fn(inputs)
+    return cache.run(key, fn, inputs, label=label)
 
 
 def stats_totals(stats) -> dict:
