@@ -31,6 +31,7 @@ from salmon_tpu_torch.index.hashtable import (KmerHashTable, build_hash_table,
                                         SLOTS_PER_BUCKET as
                                         HT_SLOTS_PER_BUCKET)
 from salmon_tpu_torch.io.fasta import load_transcripts
+from salmon_tpu_torch.utils import spans
 from salmon_tpu_torch.utils.dna import canonical_kmers, kmers_of
 
 # v4: 4-slot (n_buckets, 8) rows (v3 was 8-slot 16-wide);
@@ -535,6 +536,14 @@ def _load_table(index_dir, meta, rows):
 
 
 def load_index(index_dir: str) -> TranscriptomeIndex:
+    """The index at `index_dir`: raw planes memory-mapped, packed ones
+    decoded. Spans: index.load, and inside it index.load.<plane> for
+    each plane that is decoded (mapped planes are read at first use)."""
+    with spans.span("index.load"):
+        return _load_index(index_dir)
+
+
+def _load_index(index_dir: str) -> TranscriptomeIndex:
     with open(os.path.join(index_dir, "info.json")) as fh:
         meta = json.load(fh)
     ver = meta.get("index_format_version")
@@ -566,42 +575,47 @@ def load_index(index_dir: str) -> TranscriptomeIndex:
 
     from salmon_tpu_torch.index import diskfmt
     kmer_mode = meta.get("kmer_mode", "raw")
-    if kmer_mode == "raw":
-        kmers = z("kmers")
-    elif kmer_mode == "ef":
-        kmers = diskfmt.unpack_keys(
-            {"mode": "ef", "ef_low": z("kmer_ef_low"),
-             "ef_high": z("kmer_ef_high"),
-             "ef_l": meta["kmer_ef_l"], "ef_n": meta["kmer_ef_n"]})
-    else:
-        kmers = diskfmt.unpack_keys(
-            {"mode": kmer_mode, "kmer_d32": z("kmer_d32"),
-             "kmer_esc_idx": z("kmer_esc_idx"),
-             "kmer_esc_val": z("kmer_esc_val")})
-    counts = diskfmt.unpack_counts(
-        {"occ_cnt8": z("occ_cnt8"),
-         "occ_cnt_esc_idx": z("occ_cnt_esc_idx"),
-         "occ_cnt_esc_val": z("occ_cnt_esc_val")})
-    n = counts.shape[0]
-    pad_path = os.path.join(index_dir, "occ_pad8.npy")
-    pads = (np.asarray(z("occ_pad8"), np.int64)
-            if os.path.exists(pad_path) else np.zeros(n, np.int64))
-    cs = np.cumsum(counts + pads)
-    occ_offsets = np.empty(n + 1, np.int64)
-    occ_offsets[:-1] = cs - counts            # padded starts
-    occ_offsets[-1] = cs[-1] if n else 0
-    seq_codes = diskfmt.unpack_seq2(
-        {"seq2": z("seq2"), "seq2_n": z("seq2_n"),
-         "seq2_len": np.load(os.path.join(index_dir, "seq2_len.npy"))})
+    with spans.span("index.load.kmers"):
+        if kmer_mode == "raw":
+            kmers = z("kmers")
+        elif kmer_mode == "ef":
+            kmers = diskfmt.unpack_keys(
+                {"mode": "ef", "ef_low": z("kmer_ef_low"),
+                 "ef_high": z("kmer_ef_high"),
+                 "ef_l": meta["kmer_ef_l"], "ef_n": meta["kmer_ef_n"]})
+        else:
+            kmers = diskfmt.unpack_keys(
+                {"mode": kmer_mode, "kmer_d32": z("kmer_d32"),
+                 "kmer_esc_idx": z("kmer_esc_idx"),
+                 "kmer_esc_val": z("kmer_esc_val")})
+    with spans.span("index.load.counts"):
+        counts = diskfmt.unpack_counts(
+            {"occ_cnt8": z("occ_cnt8"),
+             "occ_cnt_esc_idx": z("occ_cnt_esc_idx"),
+             "occ_cnt_esc_val": z("occ_cnt_esc_val")})
+        n = counts.shape[0]
+        pad_path = os.path.join(index_dir, "occ_pad8.npy")
+        pads = (np.asarray(z("occ_pad8"), np.int64)
+                if os.path.exists(pad_path) else np.zeros(n, np.int64))
+        cs = np.cumsum(counts + pads)
+        occ_offsets = np.empty(n + 1, np.int64)
+        occ_offsets[:-1] = cs - counts            # padded starts
+        occ_offsets[-1] = cs[-1] if n else 0
+    with spans.span("index.load.seq"):
+        seq_codes = diskfmt.unpack_seq2(
+            {"seq2": z("seq2"), "seq2_n": z("seq2_n"),
+             "seq2_len": np.load(os.path.join(index_dir, "seq2_len.npy"))})
     true_counts = None
     if meta.get("has_true_counts"):
-        true_counts = counts.copy()
-        true_counts[z("occ_true_esc_idx")] = z("occ_true_esc_val")
-    if meta.get("occ_mode", "raw") == "occ48":
-        occ_txp, occ_pf = diskfmt.unpack_occ48(
-            z("occ48"), sep_halved=meta.get("occ48_sep_halved", False))
-    else:
-        occ_txp, occ_pf = z("occ_txp"), z("occ_pf")
+        with spans.span("index.load.true_counts"):
+            true_counts = counts.copy()
+            true_counts[z("occ_true_esc_idx")] = z("occ_true_esc_val")
+    with spans.span("index.load.occ"):
+        if meta.get("occ_mode", "raw") == "occ48":
+            occ_txp, occ_pf = diskfmt.unpack_occ48(
+                z("occ48"), sep_halved=meta.get("occ48_sep_halved", False))
+        else:
+            occ_txp, occ_pf = z("occ_txp"), z("occ_pf")
     return TranscriptomeIndex(
         k=int(meta["k"]), names=names, lengths=z("lengths"),
         complete_lengths=z("complete_lengths"),

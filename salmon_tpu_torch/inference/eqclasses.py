@@ -15,6 +15,10 @@ Rich equivalence classes: the per-fragment aux weights are accumulated
 (reference TGValue::normalizeAux semantics). Range factorization
 (SalmonQuantify.cpp:845-853) extends the label with per-transcript
 conditional-probability bin ids; those ride along as extra int32 columns.
+
+Spans (utils.spans): eq.dedupe, a batch's dedupe; eq.merge, a collapse
+of the buffered tables, counted by eq_merges and eq_rows_merged (the
+rows it took in).
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from salmon_tpu_torch.utils import spans
 
 INVALID_TXP = 0x7FFFFFFF
 
@@ -100,8 +106,9 @@ class EquivalenceClassAccumulator:
             self._ncols = key_mat.shape[1]
             self._t2 = txp.shape[1]
 
-        uniq, counts, wsum = _dedupe_rows(
-            key_mat, np.ones(key_mat.shape[0]), w)
+        with spans.span("eq.dedupe"):
+            uniq, counts, wsum = _dedupe_rows(
+                key_mat, np.ones(key_mat.shape[0]), w)
         self._chunks.append((uniq, counts, wsum))
         self._buffered += uniq.shape[0]
         # hierarchical merge: once the buffered chunk rows exceed the
@@ -115,11 +122,14 @@ class EquivalenceClassAccumulator:
     def _collapse(self) -> None:
         if len(self._chunks) <= 1:
             return
-        keys = np.concatenate([c[0] for c in self._chunks])
-        counts = np.concatenate([c[1] for c in self._chunks])
-        wsum = np.concatenate([c[2] for c in self._chunks])
-        self._chunks = [_dedupe_rows(keys, counts, wsum)]
-        self._buffered = self._chunks[0][0].shape[0]
+        with spans.span("eq.merge"):
+            keys = np.concatenate([c[0] for c in self._chunks])
+            counts = np.concatenate([c[1] for c in self._chunks])
+            wsum = np.concatenate([c[2] for c in self._chunks])
+            self._chunks = [_dedupe_rows(keys, counts, wsum)]
+            self._buffered = self._chunks[0][0].shape[0]
+        spans.count("eq_merges")
+        spans.count("eq_rows_merged", keys.shape[0])
 
     def collapsed(self) -> tuple:
         """(keys, counts, wsum) of the table so far, one row per class."""

@@ -51,6 +51,7 @@ from salmon_tpu_torch.mapping.score import (_sort_rows,
                                             score_candidates,
                                             segment_carry_first,
                                             window_bits_for)
+from salmon_tpu_torch.utils import spans
 from salmon_tpu_torch.utils.graphcache import GraphCache, tensor_signature
 
 logger = logging.getLogger("salmon_tpu_torch")
@@ -217,28 +218,39 @@ def device_index_tensors(idx: TranscriptomeIndex, device="cuda",
     (n_rows, 8) 2-bit sequence words as int32 bit patterns. The
     byte-per-base sequence stays on the host: the DP reads seq4.
     `planes`, (tab_rows, occ_oct), replaces the index's own table and
-    occurrences (one shard of a sharded index)."""
-    if planes is None:
-        n_occ = idx.occ_txp.shape[0]
-        n_oct = max((n_occ + 7) // 8, 1)
-        occ_oct = np.zeros((n_oct * 8, 2), dtype=np.int32)
-        occ_oct[:n_occ, 0] = idx.occ_txp
-        occ_oct[:n_occ, 1] = idx.occ_pf
-        planes = (idx.table.rows, occ_oct.reshape(n_oct, 16))
-    total = int(idx.seq_offsets[-1])
-    off_dtype = np.int64 if total + _SEQ4_SHIFT + 256 >= 2**31 \
-        else np.int32
+    occurrences (one shard of a sharded index).
 
-    def put(a):
-        return torch.tensor(np.asarray(a), device=device)
-
-    return {
-        "tab_rows": put(planes[0].astype(np.int32, copy=False)),
-        "occ_oct": put(planes[1]),
-        "txp_lens": put(np.asarray(idx.lengths).astype(np.int32)),
-        "seq_off": put(np.asarray(idx.seq_offsets).astype(off_dtype)),
-        "seq4": put(seq4_words(idx).view(np.int32)),
-    }
+    Spans: index.prep, the host's work (the occ_oct rebuild, seq4, the
+    casts and the page-ins of the index's memory maps that they force);
+    index.h2d, the copies (index.h2d.<tensor> each, its bytes counted
+    by index_h2d_bytes and index_h2d_bytes.<tensor>)."""
+    with spans.span("index.prep"):
+        if planes is None:
+            n_occ = idx.occ_txp.shape[0]
+            n_oct = max((n_occ + 7) // 8, 1)
+            occ_oct = np.zeros((n_oct * 8, 2), dtype=np.int32)
+            occ_oct[:n_occ, 0] = idx.occ_txp
+            occ_oct[:n_occ, 1] = idx.occ_pf
+            planes = (idx.table.rows, occ_oct.reshape(n_oct, 16))
+        total = int(idx.seq_offsets[-1])
+        off_dtype = np.int64 if total + _SEQ4_SHIFT + 256 >= 2**31 \
+            else np.int32
+        host = {
+            "tab_rows": planes[0].astype(np.int32, copy=False),
+            "occ_oct": planes[1],
+            "txp_lens": np.asarray(idx.lengths).astype(np.int32),
+            "seq_off": np.asarray(idx.seq_offsets).astype(off_dtype),
+            "seq4": seq4_words(idx).view(np.int32),
+        }
+    out = {}
+    with spans.span("index.h2d"):
+        for name, a in host.items():
+            a = np.asarray(a)
+            with spans.span(f"index.h2d.{name}"):
+                out[name] = torch.tensor(a, device=device)
+            spans.count("index_h2d_bytes", a.nbytes)
+            spans.count(f"index_h2d_bytes.{name}", a.nbytes)
+    return out
 
 
 def _end_seeds(codes, lengths, dev: dict, cfg: MapperConfig):

@@ -57,7 +57,7 @@ from salmon_tpu_torch.parallel.sharded import (device_sharded_index,
                                                sharded_config,
                                                sharded_map_paired,
                                                sharded_map_single, sub_block)
-from salmon_tpu_torch.utils import libformat
+from salmon_tpu_torch.utils import libformat, spans
 from salmon_tpu_torch.utils.dna import decode_seq
 from salmon_tpu_torch.utils.graphcache import stats_totals
 
@@ -303,18 +303,21 @@ def _group_chunks(chunks, group: int, n_groups: int, own_files: bool,
         yield empty()
 
 
-def _timed_iter(it, clock: dict, key: str):
-    """The items of `it`, the seconds spent in its next() (reading,
-    parsing and packing a chunk) added to clock[key]."""
+def _read_spans(it):
+    """The items of `it`, each next() (reading, parsing and packing a
+    chunk) inside a quant.read span of the batch that the next chunk
+    becomes: the number of chunks that are not None before it (a stream
+    shared by reads groups yields None for the others' chunks)."""
     it = iter(it)
+    b = 0
+    end = object()
     while True:
-        t = time.perf_counter()
-        try:
-            item = next(it)
-        except StopIteration:
+        with spans.span("quant.read", b):
+            item = next(it, end)
+        if item is end:
             return
-        finally:
-            clock[key] += time.perf_counter() - t
+        if item is not None:
+            b += 1
         yield item
 
 
@@ -412,8 +415,15 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
     `world` is this process's place in a multi-process run: its rank
     maps its own chunks, and the side outputs hold its own fragments.
     With opts.index_shards S > 1 the index is sharded over the S ranks
-    of each reads group; the world's size must divide by S."""
-    t0 = time.time()
+    of each reads group; the world's size must divide by S.
+
+    The mapping loop records spans (utils.spans) of each batch: quant.read,
+    quant.submit and quant.consume, inside it quant.wait (the host blocked
+    until the batch's outputs are on the host) and quant.eq (eq.dedupe,
+    eq.merge), and on the card each batch step's interval (BatchEvents).
+    Its clocks record sums them over this call."""
+    t0 = time.perf_counter()
+    span_base, count_base = spans.totals(), spans.counters()
     paired = reads2 is not None
     if sam_path is not None and not paired:
         raise NotImplementedError(
@@ -429,6 +439,11 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
     multi = world is not None and world.size > 1
     if multi:
         world.reset_clocks()
+    if device.type == "cuda":
+        with spans.span("cuda.start"):
+            # the runtime and the device's context, before the upload
+            torch.cuda.init()
+            torch.empty(1, device=device)
     shard_bits = 0
     if n_shards > 1:
         with world.timed("shard_build", host=True):
@@ -461,7 +476,6 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
     # in the JAX package)
     aux_skip_bias, aux_target_ids = _mark_auxiliary_targets(index, opts)
     bias_state = bdev = None
-    collect_seconds = 0.0
     if paired and _bias_on(opts):
         bias_state = BiasState(index, opts, device)
         bias_state.skip_bias = aux_skip_bias
@@ -492,7 +506,6 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
     orphan_fh = (open(orphan_links_path, "w")
                  if (orphan_links_path and paired) else None)
     sam_fh = _open_sam(sam_path, index) if sam_path is not None else None
-    side_seconds = sam_seconds = 0.0
 
     def put(a):
         return torch.from_numpy(a).to(device)
@@ -508,11 +521,11 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
         out = fn(batch, dev, cfg, fld_in, *compat, in_flight=depth)
         return merge_stats(world, out) if multi else out
 
-    def submit(chunk):
-        """Launch the mapping of one chunk (returns before the device
-        finishes). Returns the rows of the chunk and of its device batch
-        that the outputs hold (under shards the rank's block), and the
-        outputs."""
+    def submit(chunk, b):
+        """Launch the mapping of one chunk, batch b (returns before the
+        device finishes). Returns the rows of the chunk and of its device
+        batch that the outputs hold (under shards the rank's block), and
+        the outputs."""
         # FLD snapshot for this minibatch (the LogCMFCache refresh
         # analog); mode selects the fragment-prob form by burn-in stage
         processed = totals["num_processed"]
@@ -537,7 +550,11 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
                      "lengths_l": put(chunk.left.lengths),
                      "codes_r": put(chunk.right.codes),
                      "lengths_r": put(chunk.right.lengths)}
+        if events is not None:
+            events.begin(b)
         out = map_batch(batch, fld_in)
+        if events is not None:
+            events.end(b)
         if shard_bits:
             chunk = _sub_chunk(chunk, kmer_index, n_shards)
             batch = {k: sub_block(v, kmer_index, n_shards)
@@ -545,11 +562,9 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
         return chunk, batch, out
 
     n_batches = 0
-    last_progress = time.time()
+    last_progress = time.perf_counter()
 
     def write_side_outputs(chunk, out):
-        nonlocal side_seconds, sam_seconds
-        t_side = time.perf_counter()
         if orphan_fh is not None and "orph_link_row" in out:
             _write_orphan_links(orphan_fh, chunk, out)
         if want_names:
@@ -560,58 +575,54 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
                     if not ok[i]:
                         unmapped_fh.write(f"{nm.decode()} u\n")
             if sam_fh is not None:
-                t_sam = time.perf_counter()
-                _write_sam_batch(sam_fh, index, names, chunk, out)
-                sam_seconds += time.perf_counter() - t_sam
-        side_seconds += time.perf_counter() - t_side
+                with spans.span("quant.sam_write"):
+                    _write_sam_batch(sam_fh, index, names, chunk, out)
 
-    consume_clock = {"eq_accumulate_seconds": 0.0, "consume_seconds": 0.0}
-
-    def consume(chunk, batch, out):
-        nonlocal n_batches, last_progress, collect_seconds
-        t_consume = time.perf_counter()
-        # the first copy waits for the batch's mapping to finish
-        eq = (_to_np(out["eq_txp"]), _to_np(out["eq_weight"]),
-              _to_np(out["eq_bins"]) if cfg.range_bins > 0 else None)
-        t_acc = time.perf_counter()
-        acc.add_batch(*eq)
-        acc_seconds = time.perf_counter() - t_acc
-        consume_clock["eq_accumulate_seconds"] += acc_seconds
-        if bias_state is not None:
-            # the batch's mapping has finished (its eq tensors are on the
-            # host), so this clock reads the collection alone
-            t_col = time.perf_counter()
-            bs = out["best_pos"]
-            bias_state.obs.add_batch(collect_bias_observations(
-                bdev, out["best_txp"], bs, bs + out["best_flen"] - 1,
-                out["best_fw"], batch["lengths_l"], batch["lengths_r"],
-                out["best_is_paired"]
-                & (out["best_txp"] < index.num_valid_targets),
-                torch.ones_like(bs, dtype=torch.float32)))
-            collect_seconds += time.perf_counter() - t_col
-        fld.add_observations(_to_np(out["fld_hist"]).astype(np.float64))
-        online_mass[:] += (np.exp(fmass.next_log_mass())
-                           * _to_np(out["txp_mass"]).astype(np.float64))
-        for k in totals:
-            totals[k] += int(out[k])
-        fmt_hist_total[:] += _to_np(out["fmt_hist"]).astype(np.int64)
-        write_side_outputs(chunk, out)
-        if totals["num_processed"] >= opts.num_burnin_frags:
-            fld.freeze()
-        n_batches += 1
-        if (progress and not opts.disable_live_progress
-                and time.time() - last_progress
-                >= opts.progress_update_ms / 1000.0):
-            last_progress = time.time()
-            el = time.time() - t0
-            logger.info(
-                "processed %d fragments (%.0f frags/s), mapped %.2f%%",
-                totals["num_processed"],
-                totals["num_processed"] / max(el, 1e-9),
-                100.0 * totals["num_mapped"]
-                / max(totals["num_processed"], 1))
-        consume_clock["consume_seconds"] += (time.perf_counter() - t_consume
-                                             - acc_seconds)
+    def consume(chunk, batch, out, b):
+        nonlocal n_batches, last_progress
+        with spans.span("quant.consume", b):
+            with spans.span("quant.wait"):
+                # the first copy waits for the batch's mapping to finish
+                txp = _to_np(out["eq_txp"])
+            if events is not None:
+                events.finish(b)
+            eq = (txp, _to_np(out["eq_weight"]),
+                  _to_np(out["eq_bins"]) if cfg.range_bins > 0 else None)
+            with spans.span("quant.eq"):
+                acc.add_batch(*eq)
+            if bias_state is not None:
+                # the batch's mapping has finished (its eq tensors are on the
+                # host), so this span holds the collection alone
+                with spans.span("quant.bias_collect"):
+                    bs = out["best_pos"]
+                    bias_state.obs.add_batch(collect_bias_observations(
+                        bdev, out["best_txp"], bs, bs + out["best_flen"] - 1,
+                        out["best_fw"], batch["lengths_l"], batch["lengths_r"],
+                        out["best_is_paired"]
+                        & (out["best_txp"] < index.num_valid_targets),
+                        torch.ones_like(bs, dtype=torch.float32)))
+            fld.add_observations(_to_np(out["fld_hist"]).astype(np.float64))
+            online_mass[:] += (np.exp(fmass.next_log_mass())
+                               * _to_np(out["txp_mass"]).astype(np.float64))
+            for k in totals:
+                totals[k] += int(out[k])
+            fmt_hist_total[:] += _to_np(out["fmt_hist"]).astype(np.int64)
+            with spans.span("quant.side_outputs"):
+                write_side_outputs(chunk, out)
+            if totals["num_processed"] >= opts.num_burnin_frags:
+                fld.freeze()
+            n_batches += 1
+            if (progress and not opts.disable_live_progress
+                    and time.perf_counter() - last_progress
+                    >= opts.progress_update_ms / 1000.0):
+                last_progress = time.perf_counter()
+                el = last_progress - t0
+                logger.info(
+                    "processed %d fragments (%.0f frags/s), mapped %.2f%%",
+                    totals["num_processed"],
+                    totals["num_processed"] / max(el, 1e-9),
+                    100.0 * totals["num_mapped"]
+                    / max(totals["num_processed"], 1))
 
     # depth-deep host/device pipeline: consume batch N-depth while N
     # runs (depth 1 = the reference's one-batch-stale online state;
@@ -638,8 +649,7 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
     else:
         chunks = iter_single_chunks(reads1, opts.reads_per_batch,
                                     opts.max_read_len, want_names, pick)
-    read_clock = {"read_seconds": 0.0}
-    chunks = _timed_iter(chunks, read_clock, "read_seconds")
+    chunks = _read_spans(chunks)
     if multi:
         # padding rows only: the narrowest width that holds a k-mer
         width = bucket_len(cfg.k, opts.max_read_len)
@@ -649,26 +659,33 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
                                  want_names))
     profile_dir = getattr(opts, "profile_dir", None)
     prof = _start_profiler(profile_dir, device) if profile_dir else None
+    # the card's interval of each batch step, on the host's clock
+    events = (spans.BatchEvents(device, depth) if device.type == "cuda"
+              else None)
     # map_seconds less the set-up before the loop (the index's upload)
-    t_loop = time.time()
-    for chunk in chunks:
-        chunk, batch, out = submit(chunk)
-        if resolved_format is None:
-            # detection batches run synchronously (reference
-            # LibraryTypeDetector: 50k samples, neutral compat until then)
-            detect_hist += _to_np(out["fmt_hist"]).astype(np.int64)
-            if detect_hist.sum() >= DETECT_SAMPLES_NEEDED:
-                resolved_format = _detect_library_format(detect_hist,
-                                                         paired)
-                logger.info("auto-detected library format: %s",
-                            resolved_format)
-                compat = compat_tensors(
-                    libformat.parse_library_format(resolved_format))
-        pending.append((chunk, batch, out))
-        if len(pending) > depth:
+    t_loop = time.perf_counter()
+    with spans.span("quant.loop"):
+        for b, chunk in enumerate(chunks):
+            with spans.span("quant.submit", b):
+                chunk, batch, out = submit(chunk, b)
+            if resolved_format is None:
+                # detection batches run synchronously (reference
+                # LibraryTypeDetector: 50k samples, neutral compat until
+                # then)
+                with spans.span("quant.detect", b):
+                    detect_hist += _to_np(out["fmt_hist"]).astype(np.int64)
+                if detect_hist.sum() >= DETECT_SAMPLES_NEEDED:
+                    resolved_format = _detect_library_format(detect_hist,
+                                                             paired)
+                    logger.info("auto-detected library format: %s",
+                                resolved_format)
+                    compat = compat_tensors(
+                        libformat.parse_library_format(resolved_format))
+            pending.append((chunk, batch, out, b))
+            if len(pending) > depth:
+                consume(*pending.popleft())
+        while pending:
             consume(*pending.popleft())
-    while pending:
-        consume(*pending.popleft())
     if prof is not None:
         _stop_profiler(prof, profile_dir, device)
     for fh in (unmapped_fh, orphan_fh):
@@ -679,9 +696,14 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
             sam_fh.flush()
         else:
             sam_fh.close()
+    # the spans' sums over this call's set-up and loop
+    tot, cnt = spans.totals(span_base), spans.counters(count_base)
+
+    def spent(name):
+        return tot[name].seconds if name in tot else 0.0
     if want_names or orphan_fh is not None:
-        side_clocks = {"side_output_seconds": side_seconds,
-                       "sam_write_seconds": sam_seconds}
+        side_clocks = {"side_output_seconds": spent("quant.side_outputs"),
+                       "sam_write_seconds": spent("quant.sam_write")}
         logger.info("side output clocks (s): %s", side_clocks,
                     extra={"clocks": side_clocks})
     for st in graph_stats(dev):
@@ -693,8 +715,8 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
         resolved_format = _detect_library_format(detect_hist, paired)
         logger.info("auto-detected library format (short input): %s",
                     resolved_format)
-    map_seconds = time.time() - t0
-    map_loop_seconds = time.time() - t_loop
+    map_seconds = time.perf_counter() - t0
+    map_loop_seconds = time.perf_counter() - t_loop
     if totals["seed_tail_over"]:
         logger.warning(
             "seed tail-gather budget saturated for %d k-mer windows "
@@ -752,7 +774,7 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
             alt_init=opts.alternative_init_mode or opts.meta_mode,
             device=device)
 
-    t_em = time.time()
+    t_em = time.perf_counter()
     clocks = {}
     em_runs = []     # each EM's result, for its loop's clocks
     if opts.skip_quant:
@@ -768,25 +790,40 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
         logger.info("recomputing effective lengths with bias models")
         eff2 = bias_state.corrected_effective_lengths(res["alphas"], eff,
                                                       fld_pmf)
-        clocks = {"bias_collect_seconds": collect_seconds,
+        clocks = {"bias_collect_seconds": spent("quant.bias_collect"),
                   **{f"bias_{k}_seconds": v
                      for k, v in bias_state.seconds.items()},
                   **bias_state.graph_clocks(bdev)}
         if not np.allclose(eff2, eff):
             eff = eff2
-            t_em2 = time.time()
+            t_em2 = time.perf_counter()
             res = optimize(eff)
             em_runs.append(res)
-            clocks["em2_seconds"] = time.time() - t_em2
+            clocks["em2_seconds"] = time.perf_counter() - t_em2
         logger.info("bias correction clocks (s): %s", clocks,
                     extra={"clocks": clocks})
     res["map_seconds"] = map_seconds
-    res["em_seconds"] = time.time() - t_em
+    res["em_seconds"] = time.perf_counter() - t_em
     res.update(clocks)
+    loop_clocks = {
+        "read_seconds": spent("quant.read"),
+        "submit_seconds": spent("quant.submit"),
+        "device_wait_seconds": spent("quant.wait"),
+        "eq_accumulate_seconds": spent("quant.eq"),
+        "eq_dedupe_seconds": spent("eq.dedupe"),
+        "eq_merge_seconds": spent("eq.merge"),
+        "eq_merges": cnt.get("eq_merges", 0),
+        "eq_rows_merged": cnt.get("eq_rows_merged", 0),
+        "consume_seconds": spent("quant.consume") - spent("quant.eq"),
+        "index_prep_seconds": spent("index.prep"),
+        "index_h2d_seconds": spent("index.h2d"),
+        "index_h2d_bytes": cnt.get("index_h2d_bytes", 0)}
+    if events is not None:
+        loop_clocks["step_device_seconds"] = events.total_ns * 1e-9
     run_clocks = {"map_seconds": map_seconds,
                   "map_loop_seconds": map_loop_seconds,
                   "mapped_batches": n_batches,
-                  **read_clock, **consume_clock,
+                  **loop_clocks,
                   **{f"graph_{k}": v
                      for k, v in stats_totals(graph_stats(dev)).items()},
                   "em_seconds": res["em_seconds"],

@@ -58,9 +58,10 @@ import time
 from typing import Callable, Sequence
 
 import torch
-from torch.profiler import record_function
 
-# the profiler scopes of a loop's steps (step, loop_step), by which a
+from salmon_tpu_torch.utils import spans
+
+# the spans of a loop's steps (step, loop_step), by which a profiler's
 # trace tells the host's launches of eager, captured and replayed steps
 # apart (scripts/bench_graph_post.py)
 STEP_SCOPES = {k: f"loop step: {k}" for k in ("eager", "capture", "replay")}
@@ -189,14 +190,16 @@ class GraphCache:
         if st is None:
             st = self.stats[key] = SignatureStats(label or repr(key))
             st.eager += 1
-            return self.graphs.eager(fn, inputs)
+            with spans.span(f"step.eager {st.label}"):
+                return self.graphs.eager(fn, inputs)
         entry = self._entries.get(key)
         if entry is None:
             # the static inputs hold this batch while it is captured, so
             # that what runs at capture (a stand-in's step) sees real data
-            static = [t.clone() for t in inputs]
-            entry = self._entries[key] = self._capture(
-                st, lambda: self.graphs.capture(fn, static), static)
+            with spans.span(f"step.capture {st.label}"):
+                static = [t.clone() for t in inputs]
+                entry = self._entries[key] = self._capture(
+                    st, lambda: self.graphs.capture(fn, static), static)
         torch._foreach_copy_(entry.inputs, list(inputs))
         self._replay(st, entry)
         while len(entry.ring) < ring:
@@ -219,17 +222,17 @@ class GraphCache:
         if st is None:
             st = self.stats[key] = SignatureStats(label or repr(key))
             st.eager += 1
-            with record_function(STEP_SCOPES["eager"]):
+            with spans.span(STEP_SCOPES["eager"]):
                 self.graphs.eager(lambda _: fn(), [], device=device)
             return
         entry = self._entries.get(key)
         if entry is None:
-            with record_function(STEP_SCOPES["capture"]):
+            with spans.span(STEP_SCOPES["capture"]):
                 entry = self._entries[key] = self._capture(
                     st, lambda: self.graphs.capture(
                         lambda _: fn() or {}, [], device=device,
                         generator=generator), [])
-        with record_function(STEP_SCOPES["replay"]):
+        with spans.span(STEP_SCOPES["replay"]):
             self._replay(st, entry)
 
     def drop(self, key) -> None:
@@ -331,7 +334,7 @@ def loop_step(cache: GraphCache | None, key, fn: Callable, device,
     """cache.step(...), or fn() itself where there is no cache: the
     eager body, which the CPU runs as its plain version."""
     if cache is None:
-        with record_function(STEP_SCOPES["eager"]):
+        with spans.span(STEP_SCOPES["eager"]):
             fn()
     else:
         cache.step(key, fn, device, label, generator)
