@@ -5,7 +5,9 @@ bucket-table placement and its passes over the placed keys, the oct-row
 pads, the row gather and the alignment-mode grouping run on the host in
 C++: `csrc/bamreader.cpp`, `csrc/fastqreader.cpp`, `csrc/kmersort.cpp`
 and `csrc/alnweights.cpp`, the port's own copies of the JAX package's
-sources. At first use g++ compiles the four into one library,
+sources. `csrc/eqtable.cpp`, the port's own, is the eq accumulator's
+hash table of classes (`inference/eqclasses.py`). At first use g++
+compiles the five into one library,
 `_build/libsalmonhost-<hash>.so` (OpenMP, zlib), where the hash covers
 the sources and the flags, so an edited source is rebuilt and a built
 one is reused. The library is host
@@ -29,7 +31,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 SOURCES = ("bamreader.cpp", "fastqreader.cpp", "kmersort.cpp",
-           "alnweights.cpp")
+           "alnweights.cpp", "eqtable.cpp")
 CXX_FLAGS = ["-O3", "-std=c++17", "-fopenmp", "-shared", "-fPIC"]
 LIBS = ["-lz"]
 
@@ -92,6 +94,14 @@ SIGNATURES = {
     "table_fill_rows": (None, [_i32p, _I64, _i32p, _i32p, _i32p]),
     "table_inline": (_I64, [_i32p, _I64, _i64p, _i64p, _i32p, _i32p, _i32p,
                             _I64, _u32p, _i32p]),
+    # csrc/eqtable.cpp
+    "eqt_new": (_H, [_I64, _I64, _I64]),
+    "eqt_free": (None, [_H]),
+    "eqt_size": (_I64, [_H]),
+    "eqt_merge": (_I64, [_H, _i32p, _f64p, _f64p, _I64]),
+    "eqt_export": (_I64, [_H, _i32p, _f64p, _f64p]),
+    "eqt_dedupe": (_I64, [_i32p, _f32p, _I64, _I64, _I64, _i32p, _f64p,
+                          _f64p]),
 }
 
 

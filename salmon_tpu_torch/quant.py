@@ -814,6 +814,7 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
         "eq_merge_seconds": spent("eq.merge"),
         "eq_merges": cnt.get("eq_merges", 0),
         "eq_rows_merged": cnt.get("eq_rows_merged", 0),
+        "eq_rows_new": cnt.get("eq_rows_new", 0),
         "consume_seconds": spent("quant.consume") - spent("quant.eq"),
         "index_prep_seconds": spent("index.prep"),
         "index_h2d_seconds": spent("index.h2d"),

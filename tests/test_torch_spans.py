@@ -297,6 +297,9 @@ def test_eq_merge_counters(fresh, monkeypatch):
     tot = spans.totals()
     assert tot["eq.merge"].calls == len(done)
     assert tot["eq.dedupe"].calls == 30
+    # each class is opened by one merged row: the rest found their class
+    n = acc.num_classes   # merges the batches still pending
+    assert spans.counters()["eq_rows_new"] == n
 
 
 # --- the benchmark's readers of the store --------------------------------
