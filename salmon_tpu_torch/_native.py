@@ -100,6 +100,7 @@ SIGNATURES = {
     "eqt_size": (_I64, [_H]),
     "eqt_merge": (_I64, [_H, _i32p, _f64p, _f64p, _I64]),
     "eqt_export": (_I64, [_H, _i32p, _f64p, _f64p]),
+    "eqt_widen": (_I64, [_H, _I64, _I64, _i32p]),
     "eqt_dedupe": (_I64, [_i32p, _f32p, _I64, _I64, _I64, _i32p, _f64p,
                           _f64p]),
 }

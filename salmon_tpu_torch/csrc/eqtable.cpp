@@ -21,6 +21,13 @@
 // Sums: a class's rows are added in the order they arrive, in float64.
 // The same code serves any ncols (mapping mode's labels and bins,
 // alignment mode's labels alone).
+//
+// Width: a key is `groups` groups of t2 columns (the labels, then the
+// bins), each padded with its own value. A batch whose labels are wider
+// than the table's widens it (eqt_widen): every key is re-padded to the
+// new width and rehashed, once per widening. Padding keeps the byte
+// order of two keys, so the export's class order does not depend on the
+// width the classes were stored at.
 
 #include <algorithm>
 #include <cstdint>
@@ -106,6 +113,54 @@ struct Table {
     }
     slots.swap(fresh);
     limit = rows;
+  }
+
+  // every key re-laid from groups x t2 to groups x t2n columns (t2n >
+  // t2), group g padded with pad[g], the weight sums padded with 0, and
+  // the slots rebuilt from the new keys' hashes; a failed allocation
+  // leaves the table as it was
+  void widen(int64_t groups, int64_t t2n, const int32_t* pad) {
+    const int64_t ncn = groups * t2n;
+    int32_t* nk = static_cast<int32_t*>(
+        std::malloc((size_t)(limit > 0 ? limit : 1) * ncn * sizeof(int32_t)));
+    double* nw = static_cast<double*>(
+        std::malloc((size_t)(limit > 0 ? limit : 1) * t2n * sizeof(double)));
+    std::vector<Slot> fresh;
+    try {
+      fresh.assign(slots.size(), Slot{0, -1});
+    } catch (const std::bad_alloc&) {
+      std::free(nk);
+      std::free(nw);
+      throw;
+    }
+    if (nk == nullptr || nw == nullptr) {
+      std::free(nk);
+      std::free(nw);
+      throw std::bad_alloc();
+    }
+    const uint64_t mask = (uint64_t)slots.size() - 1;
+    for (int64_t i = 0; i < n; ++i) {
+      int32_t* k = nk + i * ncn;
+      for (int64_t g = 0; g < groups; ++g) {
+        std::memcpy(k + g * t2n, keys + i * ncols + g * t2,
+                    (size_t)t2 * sizeof(int32_t));
+        for (int64_t j = t2; j < t2n; ++j) k[g * t2n + j] = pad[g];
+      }
+      double* w = nw + i * t2n;
+      std::memcpy(w, wsum + i * t2, (size_t)t2 * sizeof(double));
+      for (int64_t j = t2; j < t2n; ++j) w[j] = 0.0;
+      const uint64_t h = row_hash(k, ncn);
+      uint64_t p = h & mask;
+      while (fresh[p].idx >= 0) p = (p + 1) & mask;
+      fresh[p] = Slot{h, i};
+    }
+    std::free(keys);
+    std::free(wsum);
+    keys = nk;
+    wsum = nw;
+    slots.swap(fresh);
+    ncols = ncn;
+    t2 = t2n;
   }
 
   // room for m more classes, by at most one rehash
@@ -199,6 +254,19 @@ int64_t eqt_merge(void* t, const int32_t* keys, const double* counts,
   } catch (const std::bad_alloc&) {
     return -1;
   }
+}
+
+// Widen the table's keys to `groups` groups of t2n columns (group g
+// padded with pad[g]) and its weight sums to t2n; t2n must pass the
+// table's t2 and groups * t2 its ncols. Returns 0, or -1 when out of
+// memory (the table is then as it was).
+int64_t eqt_widen(void* t, int64_t groups, int64_t t2n, const int32_t* pad) {
+  try {
+    static_cast<Table*>(t)->widen(groups, t2n, pad);
+  } catch (const std::bad_alloc&) {
+    return -1;
+  }
+  return 0;
 }
 
 // The table's rows ascending by their bytes (memcmp, the order of a

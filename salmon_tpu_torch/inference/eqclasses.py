@@ -19,7 +19,13 @@ class count at finish() (reference TGValue::normalizeAux semantics).
 Range factorization (SalmonQuantify.cpp:845-853) extends the label with
 per-transcript conditional-probability bin ids; those ride along as
 extra int32 columns. The table adapts to the key's width: labels alone
-(alignment mode) or labels and bins.
+(alignment mode) or labels and bins; and to the labels' width, which may
+differ from batch to batch (the batch step's wide pass widens a batch to
+its widest label): a narrower batch is padded to the table's width, a
+wider one widens the table (every key re-padded, once per widening). A
+label's columns are padded with INVALID_TXP and its bins with -1, as the
+batch step pads them, so a class's key does not depend on the width it
+arrived at, nor does the class order.
 
 Spans (utils.spans): eq.dedupe, a batch's native dedupe; eq.merge, the
 merge of the pending batches into the table, counted by eq_merges,
@@ -39,6 +45,8 @@ from salmon_tpu_torch import _native
 from salmon_tpu_torch.utils import spans
 
 INVALID_TXP = 0x7FFFFFFF
+# the pad of each group of a key's columns: the labels, the bins
+_PADS = (INVALID_TXP, -1)
 
 
 @dataclasses.dataclass
@@ -57,6 +65,21 @@ class PackedEqClasses:
     @property
     def num_fragments(self) -> float:
         return float(self.counts.sum())
+
+
+def _pad_groups(a: np.ndarray, groups: int, t2: int, fill) -> np.ndarray:
+    """Rows of `groups` column groups each padded to t2 columns with
+    fill[g] (a scalar fill pads every group with it)."""
+    m, n = a.shape
+    w = n // groups
+    if w == t2:
+        return a
+    out = np.empty((m, groups * t2), a.dtype)
+    for g in range(groups):
+        out[:, g * t2:g * t2 + w] = a[:, g * w:(g + 1) * w]
+        out[:, g * t2 + w:(g + 1) * t2] = (fill[g] if np.ndim(fill)
+                                            else fill)
+    return out
 
 
 def _dedupe(keys: np.ndarray, w: np.ndarray):
@@ -88,6 +111,16 @@ class _Table:
             raise MemoryError("eq-class table: out of memory")
         weakref.finalize(self, lib.eqt_free, self._h)
         self.ncols, self.t2 = ncols, t2
+        self.groups = ncols // t2
+
+    def widen(self, t2: int) -> None:
+        """Every key padded to `groups` groups of t2 columns."""
+        if t2 <= self.t2:
+            return
+        pad = np.array(_PADS[:self.groups], np.int32)
+        if self._lib.eqt_widen(self._h, self.groups, t2, pad) < 0:
+            raise MemoryError("eq-class table: out of memory")
+        self.t2, self.ncols = t2, self.groups * t2
 
     @property
     def size(self) -> int:
@@ -136,19 +169,33 @@ class EquivalenceClassAccumulator:
                   eq_bins: np.ndarray | None = None) -> None:
         """eq_txp: (R, T2) int32 sorted labels padded with INVALID_TXP;
         eq_weight: (R, T2) float32 aux weights; eq_bins: optional (R, T2)
-        int32 range-factorization bins (part of the label)."""
+        int32 range-factorization bins (part of the label), padded with
+        -1. T2 may differ from batch to batch."""
         valid_rows = eq_txp[:, 0] != INVALID_TXP
         if not valid_rows.any():
             return
         txp = eq_txp[valid_rows]
         w = np.ascontiguousarray(eq_weight[valid_rows], np.float32)
+        t2 = txp.shape[1]
+        groups = 1 if eq_bins is None else 2
+        if self._table is None:
+            self._table = _Table(groups * t2, t2)
+        elif groups != self._table.groups:
+            raise ValueError(
+                f"eq rows with{'out' if eq_bins is None else ''} bins for "
+                f"a table keyed on {self._table.groups} column groups")
+        elif t2 > self._table.t2:
+            self._table.widen(t2)
+        elif t2 < self._table.t2:
+            t2 = self._table.t2
+            txp = _pad_groups(txp, 1, t2, INVALID_TXP)
+            w = _pad_groups(w, 1, t2, 0)
         if eq_bins is not None:
-            key_mat = np.concatenate([txp, eq_bins[valid_rows]], axis=1)
+            bins = _pad_groups(eq_bins[valid_rows], 1, t2, -1)
+            key_mat = np.concatenate([txp, bins], axis=1)
         else:
             key_mat = txp
         key_mat = np.ascontiguousarray(key_mat, np.int32)
-        if self._table is None:
-            self._table = _Table(key_mat.shape[1], txp.shape[1])
 
         with spans.span("eq.dedupe"):
             chunk = _dedupe(key_mat, w)
@@ -163,9 +210,13 @@ class EquivalenceClassAccumulator:
         if not self._chunks:
             return
         rows = new = 0
+        tab = self._table
         with spans.span("eq.merge"):
             for keys, counts, wsum in self._chunks:
-                new += self._table.merge(keys, counts, wsum)
+                # a batch deduped before the table last widened
+                keys = _pad_groups(keys, tab.groups, tab.t2, _PADS)
+                wsum = _pad_groups(wsum, 1, tab.t2, 0.0)
+                new += tab.merge(keys, counts, wsum)
                 rows += keys.shape[0]
             self._chunks = []
             self._buffered = 0
@@ -191,6 +242,17 @@ class EquivalenceClassAccumulator:
         if keys.size:
             self._table = _Table(keys.shape[1], t2)
             self._table.merge(keys, counts, wsum)
+
+    @property
+    def label_width(self) -> int:
+        """The label columns of the table's keys (0 before a class)."""
+        return self._table.t2 if self._table is not None else 0
+
+    def widen(self, t2: int) -> None:
+        """Pad the table's labels to t2 columns (the pending batches
+        follow at the next merge)."""
+        if self._table is not None:
+            self._table.widen(t2)
 
     @property
     def num_classes(self) -> int:

@@ -56,7 +56,7 @@ def _next(a: torch.Tensor, fill):
 
 def join_pairs(cand_l: dict, cand_r: dict, start_l, start_r,
                len_l, len_r, max_pair_cands: int, fld_max: int,
-               allow_dovetail: bool = False):
+               allow_dovetail: bool = False, with_cut: bool = False):
     """Join left/right candidate sets into fragment-level hits.
 
     Every candidate is keyed by (txp, normalized orientation, side) so
@@ -73,7 +73,8 @@ def join_pairs(cand_l: dict, cand_r: dict, start_l, start_r,
 
     Returns dict of (R, T2): txp, score, frag_len, pos (fragment
     leftmost), obs_code, fw, valid, plus (R,) has_pair and
-    has_dovetail_only.
+    has_dovetail_only; with `with_cut` also cut (R,), the rows that
+    formed more than T2 pairs.
     """
     def keyed(cand, start, is_left):
         o = cand["is_fw"].to(torch.int64)
@@ -125,7 +126,7 @@ def join_pairs(cand_l: dict, cand_r: dict, start_l, start_r,
         -pair_score, pair_score, key_s, frag_len, frag_start, obs,
         fw1.to(torch.int32))
     valid_out = t_score[:, :T2] > 0
-    return {
+    out = {
         "txp": _fit((t_key >> 2).to(torch.int32), T2),
         "score": _fit(t_score, T2),
         "frag_len": _fit(t_flen, T2),
@@ -136,6 +137,9 @@ def join_pairs(cand_l: dict, cand_r: dict, start_l, start_r,
         "has_pair": valid_out.any(dim=1),
         "has_dovetail_only": has_dovetail_only,
     }
+    if with_cut:
+        out["cut"] = ok.sum(dim=1) > T2
+    return out
 
 
 def orphan_hits(cand: dict, start, mate_status: int, max_pair_cands: int):

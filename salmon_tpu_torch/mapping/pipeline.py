@@ -23,6 +23,7 @@ host accumulator (inference.eqclasses) merges equivalence classes.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import math
 import os
@@ -119,6 +120,8 @@ class MapperConfig:
     # expansion may pool its first-row gather over the other windows
     inline_singles: bool = False
     seed_hits_per_end: int = DEFAULTS.seed_hits_per_end
+    # the wide pass (WidePass): no batch-global budget, the dense flow
+    wide: bool = False
 
     @staticmethod
     def from_index(idx: TranscriptomeIndex, opts: SalmonDefaults = DEFAULTS,
@@ -274,12 +277,15 @@ def _dense_candidates(km, lk, dev: dict, cfg: MapperConfig):
     SALMON_TPU_ROWPOOL=N on an index with inlined single records, the
     first-row gather is pooled per read row (score.expand_occurrences
     row_pool), as in the JAX package."""
-    row_pool = row_pool_env()
-    key, rpos, diag, _, n_tail_over = expand_occurrences(
+    row_pool = row_pool_env() if cfg.inline_singles and not cfg.wide else 0
+    if cfg.wide:
+        tail_frac = 1       # every spilling window gets its tail rows
+    else:
+        tail_frac = 64 if (cfg.occ_aligned and cfg.occ_cap <= 8) else 8
+    key, rpos, diag, _, n_tail_over, occ_cut = expand_occurrences(
         km, lk, dev["occ_oct"], cfg.occ_cap, cfg.max_occs_per_hit,
-        stride=cfg.kmer_stride,
-        tail_frac=64 if (cfg.occ_aligned and cfg.occ_cap <= 8) else 8,
-        row_pool=row_pool if cfg.inline_singles else 0)
+        stride=cfg.kmer_stride, tail_frac=tail_frac, row_pool=row_pool,
+        with_cut=True)
     n_windows = lk[0].shape[1]
     # the window field must hold every window index
     window_bits = window_bits_for(n_windows)
@@ -291,8 +297,10 @@ def _dense_candidates(km, lk, dev: dict, cfg: MapperConfig):
     cand = score_candidates(
         key, rpos, diag, cfg.max_cands, stride=cfg.kmer_stride,
         window_bits=window_bits,
-        diag_bucket_bits=diag_bucket_bits_for(cfg.max_tpos, window_bits))
+        diag_bucket_bits=diag_bucket_bits_for(cfg.max_tpos, window_bits),
+        with_cut=True)
     cand["tail_over"] = n_tail_over
+    cand["occ_cut"] = occ_cut
     return cand
 
 
@@ -300,7 +308,7 @@ def _seed_candidates(ends, lengths_per_end, dev: dict, cfg: MapperConfig):
     """Stages 1-3 for each read end -> [(cand, start), ...]."""
     seeded = [_end_seeds(codes, lengths, dev, cfg)
               for codes, lengths in zip(ends, lengths_per_end)]
-    if cfg.sparse_seed:
+    if cfg.sparse_seed and not cfg.wide:
         P = seeded[0][1][0].shape[1]
         cands = seed_candidates_sparse(
             seeded, dev["occ_oct"], occ_cap=cfg.occ_cap,
@@ -331,12 +339,14 @@ def _reads_all(codes_l, codes_r):
 
 
 def _dp_scores(joined: dict, batch: dict, dev: dict, cfg: MapperConfig,
-               single_end: bool = False):
+               single_end: bool = False, with_cut: bool = False):
     """Selective-alignment validation: banded affine DP score for the
     joined candidates (reference PuffAligner calculateAlignments,
     SalmonQuantify.cpp:1523-1525). A single-end batch (codes/lengths) is
     its own left end and has one mate per problem. Returns (score,
-    perfect) of (R, T2)."""
+    perfect) of (R, T2), and with `with_cut` the (R,) rows that had more
+    needy slots than the per-read budget and those that had more than
+    the step DP'd."""
     if single_end:
         codes_l, len_l = batch["codes"], batch["lengths"]
         codes_r, len_r = codes_l, len_l
@@ -382,14 +392,17 @@ def _dp_scores(joined: dict, batch: dict, dev: dict, cfg: MapperConfig,
     else:
         full_cov = torch.zeros_like(joined["valid"])
 
-    # per-read DP budget: each read keeps its first `budget` needy slots
-    # (slots are chain-score-ranked), K = R * budget problems per mate
+    # per-read DP budget (the JAX package's): a read with more needy slots
+    # is marked; the step DPs each read's first `slots` needy slots (slots
+    # are chain-score-ranked), at least DP_SLOTS, every one in the wide
+    # pass: K = R * slots problems per mate
     budget = (max(2, cfg.dp_budget // 2) if cfg.alignment_cache
               else cfg.dp_budget)
-    K = min(R * budget, R * T2)
+    slots = T2 if cfg.wide else min(T2, max(budget, DP_SLOTS))
+    K = R * slots
     need_2d = joined["valid"] & ~full_cov
     keep = (need_2d & (torch.cumsum(need_2d.to(torch.int32), dim=1)
-                       <= budget)).reshape(-1)
+                       <= slots)).reshape(-1)
     # kept slots first, each group in slot order
     sel = torch.argsort((~keep).to(torch.int8), stable=True)[:K]
     sel_valid = keep[sel]
@@ -411,14 +424,27 @@ def _dp_scores(joined: dict, batch: dict, dev: dict, cfg: MapperConfig,
     tlen = dev["txp_lens"][t_sel.clamp(0, dev["txp_lens"].shape[0] - 1)]
     ids = (sel_read.repeat(len(mates)) + var * R).to(torch.int32)
     i32 = torch.int32
+    ok = sel_valid.repeat(len(mates))
+    prob = [ids, n.to(i32), p.to(i32), tlen, toff, lo.to(i32)]
+    if not reads_all.is_cuda:
+        # the plain DP (CPU tensors) takes only the kept problems; the
+        # card's step keeps its fixed shapes, and a problem it does not
+        # keep has no read rows (the kernel skips a warp of them)
+        prob = [a[ok] for a in prob]
+    else:
+        prob[1] = torch.where(ok, prob[1], 0)
     scores = banded_scores_indexed(
-        reads_all, ids, n.to(i32), p.to(i32), tlen, None, toff,
+        reads_all, prob[0], prob[1], prob[2], prob[3], None, prob[4],
         cfg.dp_bandwidth, float(cfg.match_score),
         float(cfg.mismatch_penalty), float(cfg.gap_open_penalty),
         float(cfg.gap_extend_penalty), seq_words=dev["seq4"],
         seq_words_shift=_SEQ4_SHIFT, softclip=cfg.softclip,
-        softclip_overhangs=cfg.softclip_overhangs, read_starts=lo.to(i32))
-    scores = torch.where(sel_valid.repeat(len(mates)), scores, -1e9)
+        softclip_overhangs=cfg.softclip_overhangs, read_starts=prob[5])
+    if reads_all.is_cuda:
+        scores = torch.where(ok, scores, -1e9)
+    else:
+        scores = torch.full(ok.shape, -1e9, dtype=scores.dtype,
+                            device=device).masked_scatter_(ok, scores)
 
     perfect = torch.where(is_paired, cfg.match_score * (l1 + l2),
                           cfg.match_score * m1_len).to(torch.float32)
@@ -435,6 +461,9 @@ def _dp_scores(joined: dict, batch: dict, dev: dict, cfg: MapperConfig,
         s2[sel] = scores[K:]
         score = torch.where(is_paired, s1 + s2.reshape(R, T2), s1)
     score = torch.where(full_cov, perfect, score)
+    if with_cut:
+        n_need = need_2d.sum(dim=1)
+        return score, perfect, n_need > budget, n_need > slots
     return score, perfect
 
 
@@ -736,10 +765,11 @@ def _filter_and_weight(joined: dict, fld, compat_paired,
 
 def _weigh_and_emit(joined: dict, aln_score, perfect, real_row, dev: dict,
                     cfg: MapperConfig, fld, compat_paired, compat_orphan,
-                    rlen_mapped, single_end: bool = False) -> dict:
+                    rlen_mapped, single_end: bool = False) -> tuple:
     """Stages 5-6 on the top weight_width joined hits, padding rows
     dropped: the eq-class tensors, the online per-transcript mass (EM
-    initialization) and the counters both read layouts share."""
+    initialization) and the counters both read layouts share. Returns
+    (outputs, rows): rows holds each counter's per-row terms."""
     W = min(cfg.weight_width, joined["txp"].shape[1])
     joined_w = {k: (v[:, :W] if v.dim() == 2 else v)
                 for k, v in joined.items()}
@@ -760,22 +790,81 @@ def _weigh_and_emit(joined: dict, aln_score, perfect, real_row, dev: dict,
         0, eq_txp.clamp(0, cfg.num_txps - 1).reshape(-1).to(torch.int64),
         torch.where(aln_valid, wn, 0.0).reshape(-1))
     i32 = torch.int32
-    return {
+    rows = {
+        "num_mapped": frag_ok,
+        "num_decoy_fragments": fextras["decoy_frag"] & real_row,
+        "num_frags_filtered_vm": (fextras["had_pre"] & ~frag_ok
+                                  & ~fextras["decoy_frag"] & real_row),
+        "num_alns_below_threshold": torch.where(
+            frag_ok, fextras["below_thresh"], 0),
+    }
+    out = {
         "eq_txp": eq_txp,
         "eq_weight": torch.where(aln_valid, eq_w, 0.0),
         "eq_bins": torch.where(aln_valid, eq_bins, -1),
         "frag_ok": frag_ok,
         "txp_mass": txp_mass,
         "num_processed": real_row.sum(dtype=i32),
-        "num_mapped": frag_ok.sum(dtype=i32),
-        "num_decoy_fragments": (fextras["decoy_frag"] & real_row).sum(
-            dtype=i32),
-        "num_frags_filtered_vm": (
-            fextras["had_pre"] & ~frag_ok & ~fextras["decoy_frag"]
-            & real_row).sum(dtype=i32),
-        "num_alns_below_threshold": torch.where(
-            frag_ok, fextras["below_thresh"], 0).sum(dtype=i32),
     }
+    out.update({k: v.sum(dtype=i32) for k, v in rows.items()})
+    return out, rows
+
+
+# the counters of mapped fragments, which the wide pass recounts for the
+# fragments it maps again (WidePass)
+ROW_COUNTERS = ("num_mapped", "num_paired", "num_orphans",
+                "num_decoy_fragments", "num_dovetail_fragments",
+                "num_frags_filtered_vm", "num_alns_below_threshold")
+# the fixed-shape caps that mark a fragment, by counter
+CUT_KEYS = ("marked_occ", "marked_cands", "marked_dp", "marked_width")
+# mark_counts, the batch step's counts of its marks, by name
+MARK_COUNTS = (("frags_marked",) + CUT_KEYS + ("frags_wide",)
+               + tuple(f"wide.{k}" for k in ROW_COUNTERS))
+# the batch step's outputs that mark fragments
+MARK_KEYS = ("frag_marked", "frag_wide", "mark_counts")
+# needy slots a read that the batch step DPs, past the budget it marks
+DP_SLOTS = 8
+
+
+def mark_stats(mark_counts) -> dict:
+    """A batch's mark_counts by name (MARK_COUNTS)."""
+    return {k: int(v) for k, v in zip(MARK_COUNTS, np.asarray(mark_counts))}
+
+
+def _mark_cut(out: dict, rows: dict, real_row, cuts: dict) -> None:
+    """The fragments that a fixed-shape cap of the configuration may have
+    cut short, into `out`: frag_marked (R,) bool, a fragment with a
+    window of more than occ_cap occurrences or past a tail or pool
+    budget, more than max_cands candidate runs on an end or more than
+    max_pair_cands pairs or orphan hits, more needy slots than the
+    per-read DP budget, or more joined hits than weight_width (CUT_KEYS,
+    in that order); frag_wide (R,) bool, those the step did not
+    complete itself (all but a DP budget that its DP_SLOTS covered),
+    which the wide pass maps again; and mark_counts (MARK_COUNTS): their
+    numbers, each cap's, and the ROW_COUNTERS' terms of the frag_wide
+    fragments."""
+    i32 = torch.int32
+    marked = torch.zeros_like(real_row)
+    counts = []
+    for k in CUT_KEYS:
+        c = cuts[k] & real_row
+        counts.append(c.sum(dtype=i32))
+        marked = marked | c
+    wide = real_row & (cuts["marked_occ"] | cuts["marked_cands"]
+                       | cuts["marked_width"] | cuts["dp_wide"])
+    out["frag_marked"] = marked
+    out["frag_wide"] = wide
+    out["mark_counts"] = torch.stack(
+        [marked.sum(dtype=i32)] + counts + [wide.sum(dtype=i32)]
+        + [torch.where(wide, rows[k].to(i32), 0).sum(dtype=i32)
+           for k in ROW_COUNTERS])
+
+
+def _joined_cut(joined: dict, cfg: MapperConfig):
+    """(R,) rows with more joined hits than the weight_width that
+    stages 5-6 read."""
+    W = min(cfg.weight_width, joined["txp"].shape[1])
+    return joined["valid"][:, W:].any(dim=1)
 
 
 def map_paired_batch_impl(batch: dict, dev: dict, cfg: MapperConfig,
@@ -800,12 +889,22 @@ def map_paired_from_cands(cands, batch: dict, dev: dict, cfg: MapperConfig,
     (cand_l, start_l), (cand_r, start_r) = cands
     len_l, len_r = batch["lengths_l"], batch["lengths_r"]
     zero = torch.zeros((), dtype=torch.int32, device=len_l.device)
+    none = torch.zeros_like(len_l, dtype=torch.bool)
     # the sparse flow has no tail budget
     seed_tail_over = cand_l.pop("tail_over", zero) + cand_r.pop(
         "tail_over", zero)
+    T2 = cfg.max_pair_cands
+    cuts = {"marked_occ": cand_l.pop("occ_cut", none)
+            | cand_r.pop("occ_cut", none),
+            "marked_cands": (cand_l.pop("cut", none) | cand_r.pop("cut", none)
+                             | (cand_l["valid"].sum(dim=1) > T2)
+                             | (cand_r["valid"].sum(dim=1) > T2)),
+            "marked_dp": none, "dp_wide": none}
 
     paired = join_pairs(cand_l, cand_r, start_l, start_r, len_l, len_r,
-                        cfg.max_pair_cands, cfg.fld_max, cfg.allow_dovetail)
+                        cfg.max_pair_cands, cfg.fld_max, cfg.allow_dovetail,
+                        with_cut=True)
+    cuts["marked_cands"] = cuts["marked_cands"] | paired.pop("cut")
     orph_l = orphan_hits(cand_l, start_l, MS_LEFT_ORPHAN, cfg.max_pair_cands)
     orph_r = orphan_hits(cand_r, start_r, MS_RIGHT_ORPHAN,
                          cfg.max_pair_cands)
@@ -814,8 +913,10 @@ def map_paired_from_cands(cands, batch: dict, dev: dict, cfg: MapperConfig,
 
     aln_score = perfect = None
     n_rescued = torch.zeros((), dtype=torch.int32, device=len_l.device)
+    cuts["marked_width"] = _joined_cut(joined, cfg)
     if cfg.validate_mappings:
-        aln_score, perfect = _dp_scores(joined, batch, dev, cfg)
+        aln_score, perfect, cuts["marked_dp"], cuts["dp_wide"] = \
+            _dp_scores(joined, batch, dev, cfg, with_cut=True)
         if cfg.recover_orphans:
             joined, aln_score, perfect, n_rescued = _rescue_orphans(
                 joined, batch, dev, cfg, _fld_inputs(fld)[0], aln_score,
@@ -823,9 +924,9 @@ def map_paired_from_cands(cands, batch: dict, dev: dict, cfg: MapperConfig,
 
     real_row = len_l > 0  # padding rows never count
     left_orph = joined["mate_status"] == MS_LEFT_ORPHAN
-    out = _weigh_and_emit(joined, aln_score, perfect, real_row, dev, cfg,
-                          fld, compat_paired, compat_orphan,
-                          torch.where(left_orph, len_l, len_r))
+    out, rows = _weigh_and_emit(joined, aln_score, perfect, real_row, dev,
+                                cfg, fld, compat_paired, compat_orphan,
+                                torch.where(left_orph, len_l, len_r))
     frag_ok = out["frag_ok"]
     device = frag_ok.device
 
@@ -852,6 +953,12 @@ def map_paired_from_cands(cands, batch: dict, dev: dict, cfg: MapperConfig,
         is_paired_obs.to(torch.int32))
 
     i32 = torch.int32
+    rows.update({
+        "num_paired": is_paired,
+        "num_orphans": frag_ok & (joined["mate_status"] != MS_PAIRED),
+        "num_dovetail_fragments": (paired["has_dovetail_only"] & ~frag_ok
+                                   & real_row),
+    })
     out.update({
         "num_orphans_rescued": n_rescued,
         "best_txp": take_best(joined["txp"]),
@@ -859,16 +966,15 @@ def map_paired_from_cands(cands, batch: dict, dev: dict, cfg: MapperConfig,
         "best_flen": best_flen,
         "best_fw": take_best(joined["fw"]),
         "best_is_paired": is_paired,
-        "num_paired": is_paired.sum(dtype=i32),
-        "num_orphans": (frag_ok & (joined["mate_status"] != MS_PAIRED)).sum(
+        "num_paired": rows["num_paired"].sum(dtype=i32),
+        "num_orphans": rows["num_orphans"].sum(dtype=i32),
+        "num_dovetail_fragments": rows["num_dovetail_fragments"].sum(
             dtype=i32),
-        "num_dovetail_fragments": (
-            paired["has_dovetail_only"] & ~frag_ok & real_row).sum(
-                dtype=i32),
         "seed_tail_over": seed_tail_over,
         "fld_hist": fld_hist,
         "fmt_hist": fmt_hist,
     })
+    _mark_cut(out, rows, real_row, cuts)
     if cfg.write_orphan_links:
         # orphaned mappings of both ends of fragments without a
         # concordant pair (--writeOrphanLinks; the host formats the
@@ -911,6 +1017,12 @@ def map_single_from_cands(cands, batch: dict, dev: dict, cfg: MapperConfig,
     device = lengths.device
     seed_tail_over = cand.pop("tail_over", torch.zeros(
         (), dtype=torch.int32, device=device))
+    none = torch.zeros(R, dtype=torch.bool, device=device)
+    cuts = {"marked_occ": cand.pop("occ_cut", none),
+            "marked_cands": (cand.pop("cut", none)
+                             | (cand["valid"].sum(dim=1)
+                                > cfg.max_pair_cands)),
+            "marked_dp": none, "dp_wide": none}
     joined = orphan_hits(cand, start, MS_PAIRED, cfg.max_pair_cands)
     joined["mate_status"] = torch.full((R,), MS_PAIRED, dtype=torch.int32,
                                        device=device)
@@ -919,11 +1031,14 @@ def map_single_from_cands(cands, batch: dict, dev: dict, cfg: MapperConfig,
                          torch.zeros(4, dtype=torch.bool, device=device)])
 
     aln_score = perfect = None
+    cuts["marked_width"] = _joined_cut(joined, cfg)
     if cfg.validate_mappings:
-        aln_score, perfect = _dp_scores(joined, batch, dev, cfg,
-                                        single_end=True)
-    out = _weigh_and_emit(
-        joined, aln_score, perfect, lengths > 0, dev, cfg, fld, compat6,
+        aln_score, perfect, cuts["marked_dp"], cuts["dp_wide"] = \
+            _dp_scores(joined, batch, dev, cfg, single_end=True,
+                       with_cut=True)
+    real_row = lengths > 0
+    out, rows = _weigh_and_emit(
+        joined, aln_score, perfect, real_row, dev, cfg, fld, compat6,
         torch.ones((2, 2), dtype=torch.bool, device=device), lengths,
         single_end=True)
 
@@ -934,6 +1049,8 @@ def map_single_from_cands(cands, batch: dict, dev: dict, cfg: MapperConfig,
         0, torch.where(fw_best, 0, 1), out["frag_ok"].to(torch.int32))
 
     zero = torch.zeros((), dtype=torch.int32, device=device)
+    rows.update({k: none for k in ("num_paired", "num_orphans",
+                                   "num_dovetail_fragments")})
     out.update({
         "num_paired": zero,
         "num_orphans": zero,
@@ -944,6 +1061,7 @@ def map_single_from_cands(cands, batch: dict, dev: dict, cfg: MapperConfig,
                                 device=device),
         "fmt_hist": fmt_hist,
     })
+    _mark_cut(out, rows, real_row, cuts)
     return out
 
 
@@ -998,7 +1116,7 @@ def step_signature(kind: str, batch: dict, dev: dict, cfg: MapperConfig,
 
 
 def _graphed(kind: str, impl, batch: dict, dev: dict, cfg: MapperConfig,
-             fld, compat: tuple, in_flight: int) -> dict:
+             fld, compat: tuple, in_flight: int, label: str = "") -> dict:
     key = step_signature(kind, batch, dev, cfg, fld, compat)
     names = sorted(batch)
     mode, fld_t = _fld_parts(fld)
@@ -1012,7 +1130,8 @@ def _graphed(kind: str, impl, batch: dict, dev: dict, cfg: MapperConfig,
     R, L = batch[names[0]].shape
     return graph_cache(dev).run(
         key, step, [batch[k] for k in names] + fld_t + list(compat),
-        ring=in_flight + 1, label=f"{kind} R={R} L={L} fld_mode={mode}")
+        ring=in_flight + 1,
+        label=f"{kind} R={R} L={L} fld_mode={mode}{label}")
 
 
 def map_paired_batch(batch: dict, dev: dict, cfg: MapperConfig, fld: dict,
@@ -1038,3 +1157,247 @@ def map_single_batch(batch: dict, dev: dict, cfg: MapperConfig, fld,
         return map_single_batch_impl(batch, dev, cfg, fld, compat_single)
     return _graphed("single", map_single_batch_impl, batch, dev, cfg, fld,
                     (compat_single,), in_flight)
+
+
+# ---------------------------------------------------------------------------
+# The wide pass: the fragments that a fixed-shape cap of the batch step
+# may have cut short and that the step did not complete itself
+# (frag_wide) mapped again, in the same batch, at caps sized from the
+# index, so that no label loses a transcript to a cap.
+
+# the widest label the wide pass holds
+WIDE_LABEL_MAX = 255
+# hits (rows x windows x occurrences) of one end that bound the wide
+# pass's sub-batch
+WIDE_HITS = 1 << 22
+
+
+def kept_occ_max(idx: TranscriptomeIndex, max_occs_per_hit: int,
+                 tab_rows: torch.Tensor | None = None) -> int:
+    """The largest occurrence count that a lookup of `idx` returns for a
+    k-mer the mapper keeps (count <= max_occs_per_hit), over the table's
+    slots (an inlined slot holds one record; a shadow-merged block
+    counts its keys' records and separators), at most the index's
+    maxOccsKept: on the card from the table's copy there (`tab_rows`,
+    device_index_tensors'), in slices, else on the host. Cached on the
+    index object; 0 for an index without a table. Span: index.occ_max."""
+    cache = getattr(idx, "_kept_occ_max", None)
+    if cache is None:
+        cache = {}
+        object.__setattr__(idx, "_kept_occ_max", cache)
+    if max_occs_per_hit in cache:
+        return cache[max_occs_per_hit]
+    best = 0
+    with spans.span("index.occ_max"):
+        on_card = tab_rows is not None and tab_rows.is_cuda
+        rows = tab_rows if on_card else (
+            idx.table.rows if idx.table is not None else None)
+        if rows is not None and rows.shape[0]:
+            lib = torch if on_card else np
+            step = 1 << (18 if on_card else 22)
+            top = (torch.zeros((), dtype=torch.int32, device=rows.device)
+                   if on_card else 0)
+            for a in range(0, rows.shape[0], step):
+                r = rows[a:a + step] if on_card else np.asarray(
+                    rows[a:a + step])
+                cnt = lib.where(r[:, 1::2] < 0, 1, r[:, 0::2] & 0xFFFF)
+                cnt = lib.where(cnt <= max_occs_per_hit, cnt, 0)
+                top = (torch.maximum(top, cnt.max()) if on_card
+                       else max(top, int(cnt.max())))
+            best = int(top)
+    kept = int(idx.info.get("max_occs_kept", 0) or 0)
+    if kept:
+        best = min(best, kept)
+    cache[max_occs_per_hit] = best
+    return best
+
+
+def wide_config(cfg: MapperConfig, occ_max: int) -> MapperConfig:
+    """The wide pass's configuration: every occurrence of a kept k-mer
+    (occ_cap = occ_max), no batch-global budget (cfg.wide: the tail rows
+    of every spilling window, the dense seed flow), candidate, pair and
+    label widths of at least twice that (a read end lies on a few exons
+    of one gene, each k-mer on at most occ_max transcripts), at most
+    WIDE_LABEL_MAX, and a DP budget of every joined hit."""
+    C = max(cfg.occ_cap, occ_max)
+    T = min(WIDE_LABEL_MAX, max(cfg.max_cands, cfg.max_pair_cands,
+                                cfg.weight_width, 2 * C))
+    return dataclasses.replace(cfg, occ_cap=C, max_cands=T,
+                               max_pair_cands=T, weight_width=T,
+                               dp_budget=2 * T if cfg.alignment_cache else T,
+                               wide=True)
+
+
+def map_wide_impl(batch: dict, dev: dict, cfg: MapperConfig, fld, *compat,
+                  paired: bool, rows: int) -> dict:
+    """One sub-batch of the wide pass, eagerly: the marked fragments of
+    rank [start, start + rows) among batch["frag_wide"] (start:
+    batch["wide_start"]), compacted into `rows` rows and mapped at the
+    wide configuration `cfg`. Returns their eq tensors (rows, T),
+    wide_rows (the batch row of each, -1 for an empty one), wide_counts
+    (the ROW_COUNTERS over them), txp_mass (their online mass less what
+    the batch step gave them, from its eq_txp / eq_weight in
+    batch["main_txp"] / batch["main_weight"]), frags_cut_wide (those a
+    wide cap still cut) and, paired, their best hits."""
+    marked = batch["frag_wide"]
+    R = marked.shape[0]
+    rank = torch.cumsum(marked.to(torch.int64), 0) - 1 - batch["wide_start"]
+    take = marked & (rank >= 0) & (rank < rows)
+    sel = torch.argsort((~take).to(torch.int8), stable=True)[:rows]
+    ok = take[sel]
+    names = (("codes_l", "lengths_l", "codes_r", "lengths_r") if paired
+             else ("codes", "lengths"))
+    sub = {k: batch[k][sel] for k in names}
+    for k in names[1::2]:
+        sub[k] = torch.where(ok, sub[k], 0)
+    impl = map_paired_batch_impl if paired else map_single_batch_impl
+    out = impl(sub, dev, cfg, fld, *compat)
+    # the batch step's online mass of these rows, taken back
+    mt, mw = batch["main_txp"][sel], batch["main_weight"][sel]
+    mv = (mt != INVALID_TXP) & ok[:, None]
+    ws = torch.where(mv, mw, 0.0).sum(dim=1, keepdim=True)
+    wn = torch.where(mv & (ws > 0), mw / ws.clamp(min=1e-30), 0.0)
+    mass = out["txp_mass"].index_add(
+        0, mt.clamp(0, cfg.num_txps - 1).reshape(-1).to(torch.int64),
+        -wn.reshape(-1))
+    keep = ["eq_txp", "eq_weight", "eq_bins", "frag_ok"]
+    if paired:
+        keep += ["best_txp", "best_pos", "best_flen", "best_fw",
+                 "best_is_paired"]
+    res = {k: out[k] for k in keep}
+    res.update({
+        "wide_rows": torch.where(ok, sel, -1),
+        "wide_counts": torch.stack([out[k] for k in ROW_COUNTERS]),
+        "txp_mass": mass,
+        "frags_cut_wide": out["mark_counts"][MARK_COUNTS.index(
+            "frags_wide")],
+    })
+    return res
+
+
+class WidePass:
+    """The wide pass of one mapping run (quant.quantify): after a batch
+    step whose outputs mark fragments for it (frag_wide; their number,
+    frags_wide, read on the host once the batch is there), `run` maps
+    them again at
+    wide_config's caps, in sub-batches of a fixed number of rows, as
+    many as the marked fragments need; on the card each sub-batch
+    replays a CUDA graph of its own signature, through the batch step's
+    cache and memory pool, on the same stream. `complete` splices the
+    results into the batch's eq tensors on the host. A batch that marks
+    nothing costs nothing here."""
+
+    def __init__(self, idx: TranscriptomeIndex, cfg: MapperConfig,
+                 paired: bool, rows: int | None = None,
+                 tab_rows: torch.Tensor | None = None):
+        self.cfg = wide_config(cfg, kept_occ_max(
+            idx, cfg.max_occs_per_hit, tab_rows))
+        self.paired = paired
+        self.rows = rows
+        self.names = (("codes_l", "lengths_l", "codes_r", "lengths_r")
+                      if paired else ("codes", "lengths"))
+
+    def rows_for(self, R: int, L: int, cuda: bool = True) -> int:
+        """Rows of a sub-batch for batches of R reads of width L: the
+        `rows` given, else on the card a quarter of the batch (at least
+        64), halved while one end's hits pass WIDE_HITS, and on the CPU
+        (the plain version, whose cost is its steps) the whole batch."""
+        if self.rows is not None:
+            return min(R, self.rows)
+        if not cuda:
+            return R
+        cfg = self.cfg
+        P = max(1, (L - cfg.k) // cfg.kmer_stride + 1)
+        rows = min(R, max(64, R // 4))
+        while rows > 64 and rows * P * cfg.occ_cap > WIDE_HITS:
+            rows //= 2
+        return rows
+
+    def run(self, batch: dict, out: dict, dev: dict, fld, compat: tuple,
+            n_marked: int) -> tuple:
+        """The wide pass over a batch's n_marked fragments (> 0), issued
+        on the current stream: (results, event), one dict a sub-batch.
+        On the card the results are host tensors that copies issued
+        after the sub-batches fill (the event, recorded after them, says
+        when), so that the host waits on this pass alone; on the CPU the
+        event is None."""
+        R, L = batch[self.names[0]].shape
+        device = batch[self.names[0]].device
+        rows = self.rows_for(R, L, device.type == "cuda")
+        n = -(-n_marked // rows)
+        impl = functools.partial(map_wide_impl, paired=self.paired,
+                                 rows=rows)
+        base = {k: batch[k] for k in self.names}
+        base.update(frag_wide=out["frag_wide"],
+                    main_txp=out["eq_txp"], main_weight=out["eq_weight"])
+        res = []
+        for j in range(n):
+            inp = dict(base, wide_start=torch.full(
+                (), j * rows, dtype=torch.int64, device=device))
+            if device.type != "cuda":
+                res.append(impl(inp, dev, self.cfg, fld, *compat))
+            else:
+                res.append(_graphed(
+                    "wide-paired" if self.paired else "wide-single", impl,
+                    inp, dev, self.cfg, fld, compat, n - 1,
+                    label=f" rows={rows}"))
+        spans.count("frags_wide_passes", n)
+        if device.type != "cuda":
+            return res, None
+        host = [{k: v.to("cpu", non_blocking=True) for k, v in r.items()}
+                for r in res]
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    @staticmethod
+    def complete(eq_txp, eq_weight, eq_bins, frag_ok, ran: tuple) -> dict:
+        """The batch's host eq tensors (R, W) with the wide pass's rows
+        spliced in, widened to the widest label the batch holds (padded
+        with INVALID_TXP, 0 and -1), and what the run's totals take from
+        it: {"eq": (txp, weight, bins or None), "frag_ok", "rows" (the
+        rows replaced), "counts" (the ROW_COUNTERS of those rows),
+        "mass" (their online mass less the batch step's),
+        "cut" (rows a wide cap still cut), "width", "best" (the paired
+        best hits of those rows: dict of arrays, or None)}. `ran` is
+        run's (results, event): this waits on the event."""
+        res, event = ran
+        if event is not None:
+            event.synchronize()
+        host = [{k: v.numpy() for k, v in r.items()} for r in res]
+        wrows = np.concatenate([h["wide_rows"] for h in host])
+        ok = wrows >= 0
+        rows = wrows[ok]
+        wt = np.concatenate([h["eq_txp"] for h in host])[ok]
+        width = int((wt != INVALID_TXP).sum(axis=1).max(initial=0))
+        W = max(eq_txp.shape[1], width)
+
+        def widened(a, fill, wide):
+            o = np.full((a.shape[0], W), fill, a.dtype)
+            o[:, :a.shape[1]] = a
+            o[rows] = fill
+            w = min(W, wide.shape[1])
+            o[rows, :w] = wide[:, :w]
+            return o
+
+        txp = widened(eq_txp, INVALID_TXP, wt)
+        w = widened(eq_weight, 0,
+                    np.concatenate([h["eq_weight"] for h in host])[ok])
+        bins = None
+        if eq_bins is not None:
+            bins = widened(eq_bins, -1, np.concatenate(
+                [h["eq_bins"] for h in host])[ok])
+        fok = np.array(frag_ok, copy=True)
+        fok[rows] = np.concatenate([h["frag_ok"] for h in host])[ok]
+        best = None
+        if "best_txp" in host[0]:
+            best = {k: np.concatenate([h[k] for h in host])[ok]
+                    for k in ("best_txp", "best_pos", "best_flen",
+                              "best_fw", "best_is_paired")}
+        return {"eq": (txp, w, bins), "frag_ok": fok, "rows": rows,
+                "counts": sum(h["wide_counts"].astype(np.int64)
+                              for h in host),
+                "mass": sum(h["txp_mass"].astype(np.float64)
+                            for h in host),
+                "cut": int(sum(int(h["frags_cut_wide"]) for h in host)),
+                "width": width, "best": best}

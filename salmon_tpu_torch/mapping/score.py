@@ -87,7 +87,8 @@ def _sort_rows(key: torch.Tensor, *payloads: torch.Tensor):
 def expand_occurrences(km: dict, lk, occ_oct: torch.Tensor,
                        occ_cap: int, max_occs_per_hit: int,
                        stride: int = 1, tail_frac: int = 8,
-                       inline_pool: bool = False, row_pool: int = 0):
+                       inline_pool: bool = False, row_pool: int = 0,
+                       with_cut: bool = False):
     """Gather up to C occurrences per found k-mer window.
 
     `lk` is hash_lookup's (start, count, found, inl, itxp, ipf); window p
@@ -106,6 +107,10 @@ def expand_occurrences(km: dict, lk, occ_oct: torch.Tensor,
     package does (a pooled window past its budget that the tail still
     serves takes the pool's zero row for its first records, there as
     here).
+
+    With `with_cut`, a sixth value marks each read row (R,) bool that a
+    budget cut: a window with more than C occurrences, or past the
+    tail or a pool budget.
 
     The shadow-merge separator scan runs on every batch: the JAX package
     gates it behind an any-separator test, which gives identical results
@@ -137,6 +142,7 @@ def expand_occurrences(km: dict, lk, occ_oct: torch.Tensor,
         return occ_oct[q.clamp(0, n_oct - 1)]
 
     n_pool_over = torch.zeros((), dtype=torch.int64, device=dev)
+    pool_over = torch.zeros(F, dtype=torch.bool, device=dev)
     if row_pool and not inline_pool:
         # per read row: the needy windows first, each group in column
         # order (the JAX package's packed (flag, column) sort keys unique
@@ -153,7 +159,8 @@ def expand_occurrences(km: dict, lk, occ_oct: torch.Tensor,
         row0 = row0.reshape(F, 16)
         incl = torch.cumsum(need2.to(torch.int32), dim=1) <= p_need
         got_row0 = (need2 & incl).reshape(F)
-        n_pool_over = (need2 & ~incl).sum()
+        pool_over = (need2 & ~incl).reshape(F)
+        n_pool_over = pool_over.sum()
     elif inline_pool:
         need_row = use_f & ~inl_f
         K0 = min(F, max(4096, F // 3))
@@ -162,6 +169,7 @@ def expand_occurrences(km: dict, lk, occ_oct: torch.Tensor,
         row0[psel] = rows_at(q0[psel])
         got_row0 = need_row & (torch.cumsum(need_row.to(torch.int32), 0)
                                <= K0)
+        pool_over = need_row & ~got_row0
         n_pool_over = torch.clamp(need_row.sum() - K0, min=0)
     else:
         row0 = rows_at(q0)                                 # (F, 16)
@@ -223,7 +231,10 @@ def expand_occurrences(km: dict, lk, occ_oct: torch.Tensor,
     diag = torch.where(orient_fw, tpos - rpos, tpos + rpos)
     n_tail_over = (torch.clamp(need.sum() - K, min=0)
                    + n_pool_over).to(torch.int32)
-    return key, rpos, diag, ovalid, n_tail_over
+    if not with_cut:
+        return key, rpos, diag, ovalid, n_tail_over
+    cut = use_f & ((count.reshape(F) > C) | (need & ~got_tail) | pool_over)
+    return key, rpos, diag, ovalid, n_tail_over, cut.reshape(R, P).any(1)
 
 
 DIAG_OFFSET = 4096  # diag >= -max_read_len, so +4096 keeps buckets >= 0
@@ -245,7 +256,8 @@ def diag_bucket_bits_for(max_tpos: int, window_bits: int,
 
 
 def score_candidates(key, rpos, diag, max_cands: int, stride: int = 1,
-                     window_bits: int = 8, diag_bucket_bits: int = 5):
+                     window_bits: int = 8, diag_bucket_bits: int = 5,
+                     with_cut: bool = False):
     """Sort hits per read and reduce co-linear runs to top-T candidates.
 
     Hits sort by (candidate key, key2 = diag_bucket << window_bits |
@@ -260,7 +272,8 @@ def score_candidates(key, rpos, diag, max_cands: int, stride: int = 1,
       stride: window spacing in bases (rpos = window * stride).
 
     Returns dict of (R, T): txp (int32), is_fw (bool), score (int32),
-    min_diag (int32), valid (bool).
+    min_diag (int32), valid (bool); with `with_cut` also cut (R,) bool,
+    the rows that had more than T runs.
     """
     window = (rpos // stride).to(torch.int64)
     db = ((diag.to(torch.int64) + DIAG_OFFSET) & MASK32) >> diag_bucket_bits
@@ -293,13 +306,16 @@ def score_candidates(key, rpos, diag, max_cands: int, stride: int = 1,
     neg_s, top_key, top_diag = _sort_rows(-end_score, key_s, min_diag)
     top_score = -neg_s[:, :max_cands]
     top_key = top_key[:, :max_cands]
-    return {
+    out = {
         "txp": (top_key >> 1).to(torch.int32),
         "is_fw": (top_key & 1).to(torch.bool),
         "score": top_score,
         "min_diag": top_diag[:, :max_cands],
         "valid": top_score > 0,
     }
+    if with_cut:
+        out["cut"] = run_end.sum(dim=1) > max_cands
+    return out
 
 
 def candidate_read_start(cand: dict, read_len, k: int):

@@ -277,6 +277,11 @@ def allgather_eq_state(keys: np.ndarray, counts: np.ndarray,
             np.concatenate([wsum_g[p, :n[p]] for p in range(len(n))]))
 
 
+def max_over_ranks(value: int) -> int:
+    """The largest of every rank's `value`."""
+    return int(_gather_host(np.array([value], np.int64)).max())
+
+
 def allreduce_histograms(arrays):
     """Sum fixed-shape float64 host histograms over the ranks
     (mergeObservedBias analog, WorkerRuntimeContext.hpp:22-70): gathered

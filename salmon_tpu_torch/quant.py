@@ -37,15 +37,17 @@ from salmon_tpu_torch.index.builder import TranscriptomeIndex, load_index
 from salmon_tpu_torch.inference import em as em_mod
 from salmon_tpu_torch.inference import sampling
 from salmon_tpu_torch.inference.clusters import normalize_alphas
-from salmon_tpu_torch.inference.eqclasses import EquivalenceClassAccumulator
+from salmon_tpu_torch.inference.eqclasses import (INVALID_TXP,
+                                                 EquivalenceClassAccumulator)
 from salmon_tpu_torch.io import writers
 from salmon_tpu_torch.io.fastq import (PairedChunk, ReadChunk, bucket_len,
                                        iter_paired_chunks, iter_single_chunks)
-from salmon_tpu_torch.mapping.pipeline import (MapperConfig,
+from salmon_tpu_torch.mapping.pipeline import (CUT_KEYS, ROW_COUNTERS,
+                                               MapperConfig, WidePass,
                                                device_index_tensors,
                                                graph_stats,
                                                map_paired_batch,
-                                               map_single_batch)
+                                               map_single_batch, mark_stats)
 from salmon_tpu_torch.models.bias import (bias_device_tensors,
                                           collect_bias_observations)
 from salmon_tpu_torch.models.bias_correct import BiasState
@@ -352,6 +354,9 @@ def _merge_ranks(world, acc, bias_state, ranged: bool) -> None:
                  np.float64(o.mass_fwd), np.float64(o.mass_rc)])
         o.mass_fwd, o.mass_rc = float(mf), float(mr)
     with world.timed("eq_allgather", host=True):
+        # the ranks' labels at one width (a rank's wide pass may have
+        # widened its table)
+        acc.widen(distributed.max_over_ranks(acc.label_width))
         keys, counts, wsum = distributed.allgather_eq_state(
             *acc.collapsed())
     # a key is the labels, then as many range-factorization bins
@@ -389,8 +394,8 @@ def _mark_auxiliary_targets(index, opts):
     return mask, np.nonzero(mask)[0].tolist()
 
 
-def _to_np(t: torch.Tensor) -> np.ndarray:
-    return t.cpu().numpy()
+def _to_np(t) -> np.ndarray:
+    return t if isinstance(t, np.ndarray) else t.cpu().numpy()
 
 
 def quantify(index: TranscriptomeIndex | str, lib_format: str,
@@ -417,10 +422,21 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
     With opts.index_shards S > 1 the index is sharded over the S ranks
     of each reads group; the world's size must divide by S.
 
+    The fragments that a fixed-shape cap of the batch step may have cut
+    short are mapped again at wide caps in the same batch (the wide pass,
+    mapping.pipeline.WidePass; not under --indexShards), and their
+    completed labels reach the eq accumulator in the batch's one
+    add_batch, in fragment order, widened to the batch's widest label.
+
     The mapping loop records spans (utils.spans) of each batch: quant.read,
     quant.submit and quant.consume, inside it quant.wait (the host blocked
-    until the batch's outputs are on the host) and quant.eq (eq.dedupe,
-    eq.merge), and on the card each batch step's interval (BatchEvents).
+    until the batch's outputs are on the host), step.wide (the wide
+    pass's launch), quant.wide (its results spliced in, the wait on them
+    included) and quant.eq (eq.dedupe, eq.merge), and on the card each
+    batch step's and wide pass's interval (BatchEvents); the counters
+    frags_marked, marked_occ, marked_cands, marked_dp, marked_width,
+    frags_wide, frags_wide_passes and frags_cut_wide, and the peak
+    label_width_max.
     Its clocks record sums them over this call."""
     t0 = time.perf_counter()
     span_base, count_base = spans.totals(), spans.counters()
@@ -457,6 +473,11 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
         dev = device_index_tensors(index, device)
         if multi:
             logger.info("mapping data-parallel over %d ranks", world.size)
+    wide = (WidePass(index, cfg, paired, tab_rows=dev["tab_rows"])
+            if n_shards == 1 else None)
+    if wide is not None:
+        logger.info("wide pass: occ_cap %d, candidates, pairs and labels "
+                    "%d", wide.cfg.occ_cap, wide.cfg.weight_width)
 
     fld = FragmentLengthDistribution(
         max_val=opts.max_frag_length, prior_mu=opts.frag_len_prior_mean,
@@ -470,6 +491,14 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
               "num_dovetail_fragments": 0, "num_frags_filtered_vm": 0,
               "num_alns_below_threshold": 0, "seed_tail_over": 0}
     fmt_hist_total = np.zeros(6, dtype=np.int64)
+    # the wide pass's recount of the fragments it mapped again, added to
+    # the totals and the online mass after the stream (summed over the
+    # ranks there)
+    wide_counts = np.zeros(len(ROW_COUNTERS), dtype=np.int64)
+    wide_mass = np.zeros(index.num_targets, dtype=np.float64)
+    wide_stats = {k: 0 for k in ("frags_marked", *CUT_KEYS, "frags_wide",
+                                 "frags_cut_wide")}
+    label_width_max = 0
 
     # bias models: observed statistics are collected per batch on the
     # device, paired input only (single-end runs keep no bias state, as
@@ -525,7 +554,7 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
         """Launch the mapping of one chunk, batch b (returns before the
         device finishes). Returns the rows of the chunk and of its device
         batch that the outputs hold (under shards the rank's block), and
-        the outputs."""
+        the outputs, and the FLD snapshot and compat tables it ran with."""
         # FLD snapshot for this minibatch (the LogCMFCache refresh
         # analog); mode selects the fragment-prob form by burn-in stage
         processed = totals["num_processed"]
@@ -559,26 +588,77 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
             chunk = _sub_chunk(chunk, kmer_index, n_shards)
             batch = {k: sub_block(v, kmer_index, n_shards)
                      for k, v in batch.items()}
-        return chunk, batch, out
+        return chunk, batch, out, (fld_in, compat)
 
     n_batches = 0
     last_progress = time.perf_counter()
 
-    def write_side_outputs(chunk, out):
-        if orphan_fh is not None and "orph_link_row" in out:
-            _write_orphan_links(orphan_fh, chunk, out)
+    # the side outputs' keys of a batch's outputs, read on the host before
+    # a later batch's step overwrites them
+    side_keys = ((("frag_ok", "best_txp", "best_pos", "best_flen",
+                   "best_fw", "best_is_paired") if paired else ("frag_ok",))
+                 + (("orph_link_row", "orphl_txp", "orphl_pos", "orphr_txp",
+                     "orphr_pos") if orphan_fh is not None else ()))
+    # a batch whose wide pass runs on the card while the host goes on:
+    # its eq rows reach the accumulator at the next consume (or after the
+    # stream), before that batch's own
+    deferred = []
+
+    def run_wide(batch, out, b, step_in, n_wide):
+        """The wide pass's launch over a batch's frag_wide fragments."""
+        with spans.span("step.wide"):
+            if wide_events is not None:
+                wide_events.begin(b)
+            ran = wide.run(batch, out, dev, step_in[0], step_in[1], n_wide)
+            if wide_events is not None:
+                wide_events.end(b)
+        return ran
+
+    def finish(chunk, eq, side, b, wide_part):
+        """A batch's eq rows into the accumulator and its side outputs,
+        once its wide pass (if any) is spliced in."""
+        nonlocal label_width_max
+        if wide_part is not None:
+            ran, mass_factor, marked_counts = wide_part
+            with spans.span("quant.wide", b):
+                done = wide.complete(*eq, side["frag_ok"], ran)
+            if wide_events is not None:
+                wide_events.finish(b)
+            eq = done["eq"]
+            # the batch step's counts of these rows give way to the recount
+            wide_counts[:] += done["counts"] - marked_counts
+            wide_mass[:] += mass_factor * done["mass"]
+            wide_stats["frags_cut_wide"] += done["cut"]
+            spans.count("frags_cut_wide", done["cut"])
+            side = dict(side, frag_ok=done["frag_ok"])
+            for k, v in (done["best"] or {}).items():
+                if k in side:
+                    side[k] = side[k].copy()
+                    side[k][done["rows"]] = v
+        width = int((eq[0] != INVALID_TXP).sum(axis=1).max(initial=0))
+        if width > label_width_max:
+            label_width_max = width
+            spans.peak("label_width_max", width)
+        with spans.span("quant.eq", b):
+            acc.add_batch(*eq)
+        with spans.span("quant.side_outputs", b):
+            write_side_outputs(chunk, side)
+
+    def write_side_outputs(chunk, side):
+        if orphan_fh is not None and "orph_link_row" in side:
+            _write_orphan_links(orphan_fh, chunk, side)
         if want_names:
             names = (chunk.left.names if paired else chunk.names) or []
             if unmapped_fh is not None:
-                ok = _to_np(out["frag_ok"])
+                ok = side["frag_ok"]
                 for i, nm in enumerate(names[:chunk.n_valid]):
                     if not ok[i]:
                         unmapped_fh.write(f"{nm.decode()} u\n")
             if sam_fh is not None:
                 with spans.span("quant.sam_write"):
-                    _write_sam_batch(sam_fh, index, names, chunk, out)
+                    _write_sam_batch(sam_fh, index, names, chunk, side)
 
-    def consume(chunk, batch, out, b):
+    def consume(chunk, batch, out, b, step_in):
         nonlocal n_batches, last_progress
         with spans.span("quant.consume", b):
             with spans.span("quant.wait"):
@@ -586,10 +666,37 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
                 txp = _to_np(out["eq_txp"])
             if events is not None:
                 events.finish(b)
+            while deferred:
+                finish(*deferred.pop())
+            # what the host keeps of the outputs, read before the wide
+            # pass is queued behind them
             eq = (txp, _to_np(out["eq_weight"]),
                   _to_np(out["eq_bins"]) if cfg.range_bins > 0 else None)
-            with spans.span("quant.eq"):
-                acc.add_batch(*eq)
+            want_side = want_names or orphan_fh is not None
+            side = ({k: _to_np(out[k]) for k in side_keys} if want_side
+                    else {})
+            fld_hist = _to_np(out["fld_hist"]).astype(np.float64)
+            txp_mass = _to_np(out["txp_mass"]).astype(np.float64)
+            for k in totals:
+                totals[k] += int(out[k])
+            fmt_hist_total[:] += _to_np(out["fmt_hist"]).astype(np.int64)
+            mass_factor = np.exp(fmass.next_log_mass())
+            wide_part = None
+            marks = (mark_stats(_to_np(out["mark_counts"]))
+                     if wide is not None else {"frags_marked": 0})
+            if marks["frags_marked"]:
+                for k in ("frags_marked", *CUT_KEYS, "frags_wide"):
+                    wide_stats[k] += marks[k]
+                    spans.count(k, marks[k])
+            if marks.get("frags_wide"):
+                side.setdefault("frag_ok", _to_np(out["frag_ok"]))
+                # launched now, the wide pass runs on the card while the
+                # host does the rest and reads the next batch
+                wide_part = (run_wide(batch, out, b, step_in,
+                                      marks["frags_wide"]),
+                             mass_factor,
+                             np.array([marks[f"wide.{k}"]
+                                       for k in ROW_COUNTERS], np.int64))
             if bias_state is not None:
                 # the batch's mapping has finished (its eq tensors are on the
                 # host), so this span holds the collection alone
@@ -601,14 +708,12 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
                         out["best_is_paired"]
                         & (out["best_txp"] < index.num_valid_targets),
                         torch.ones_like(bs, dtype=torch.float32)))
-            fld.add_observations(_to_np(out["fld_hist"]).astype(np.float64))
-            online_mass[:] += (np.exp(fmass.next_log_mass())
-                               * _to_np(out["txp_mass"]).astype(np.float64))
-            for k in totals:
-                totals[k] += int(out[k])
-            fmt_hist_total[:] += _to_np(out["fmt_hist"]).astype(np.int64)
-            with spans.span("quant.side_outputs"):
-                write_side_outputs(chunk, out)
+            fld.add_observations(fld_hist)
+            online_mass[:] += mass_factor * txp_mass
+            if wide_part is None:
+                finish(chunk, eq, side, b, None)
+            else:
+                deferred.append((chunk, eq, side, b, wide_part))
             if totals["num_processed"] >= opts.num_burnin_frags:
                 fld.freeze()
             n_batches += 1
@@ -662,12 +767,14 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
     # the card's interval of each batch step, on the host's clock
     events = (spans.BatchEvents(device, depth) if device.type == "cuda"
               else None)
+    wide_events = (spans.BatchEvents(device, depth, "step.wide")
+                   if wide is not None and device.type == "cuda" else None)
     # map_seconds less the set-up before the loop (the index's upload)
     t_loop = time.perf_counter()
     with spans.span("quant.loop"):
         for b, chunk in enumerate(chunks):
             with spans.span("quant.submit", b):
-                chunk, batch, out = submit(chunk, b)
+                chunk, batch, out, step_in = submit(chunk, b)
             if resolved_format is None:
                 # detection batches run synchronously (reference
                 # LibraryTypeDetector: 50k samples, neutral compat until
@@ -681,11 +788,13 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
                                 resolved_format)
                     compat = compat_tensors(
                         libformat.parse_library_format(resolved_format))
-            pending.append((chunk, batch, out, b))
+            pending.append((chunk, batch, out, b, step_in))
             if len(pending) > depth:
                 consume(*pending.popleft())
         while pending:
             consume(*pending.popleft())
+        while deferred:
+            finish(*deferred.pop())
     if prof is not None:
         _stop_profiler(prof, profile_dir, device)
     for fh in (unmapped_fh, orphan_fh):
@@ -715,8 +824,20 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
         resolved_format = _detect_library_format(detect_hist, paired)
         logger.info("auto-detected library format (short input): %s",
                     resolved_format)
+    if wide is not None:
+        corr = [wide_counts.astype(np.float64), wide_mass]
+        if multi:
+            corr = distributed.allreduce_histograms(corr)
+        for k, v in zip(ROW_COUNTERS, corr[0]):
+            totals[k] += int(round(v))
+        online_mass += corr[1]
     map_seconds = time.perf_counter() - t0
     map_loop_seconds = time.perf_counter() - t_loop
+    if wide_stats["frags_cut_wide"]:
+        logger.warning(
+            "%d fragments filled a cap of the wide pass (labels of at "
+            "most %d transcripts); their labels may lack transcripts",
+            wide_stats["frags_cut_wide"], wide.cfg.weight_width)
     if totals["seed_tail_over"]:
         logger.warning(
             "seed tail-gather budget saturated for %d k-mer windows "
@@ -818,9 +939,19 @@ def quantify(index: TranscriptomeIndex | str, lib_format: str,
         "consume_seconds": spent("quant.consume") - spent("quant.eq"),
         "index_prep_seconds": spent("index.prep"),
         "index_h2d_seconds": spent("index.h2d"),
-        "index_h2d_bytes": cnt.get("index_h2d_bytes", 0)}
+        "index_h2d_bytes": cnt.get("index_h2d_bytes", 0),
+        "index_occ_max_seconds": spent("index.occ_max"),
+        "frags_processed": totals["num_processed"],
+        **wide_stats,
+        "frags_wide_passes": cnt.get("frags_wide_passes", 0),
+        "label_width_max": label_width_max,
+        "wide_occ_cap": wide.cfg.occ_cap if wide is not None else 0,
+        "wide_width": wide.cfg.weight_width if wide is not None else 0,
+        "wide_seconds": spent("step.wide") + spent("quant.wide")}
     if events is not None:
         loop_clocks["step_device_seconds"] = events.total_ns * 1e-9
+    if wide_events is not None:
+        loop_clocks["wide_device_seconds"] = wide_events.total_ns * 1e-9
     run_clocks = {"map_seconds": map_seconds,
                   "map_loop_seconds": map_loop_seconds,
                   "mapped_batches": n_batches,

@@ -4,7 +4,8 @@ A span is a named interval of the host's work on time.perf_counter_ns(),
 with the id of the batch it belongs to (the mapping loop's submit order,
 0-based; -1 outside a batch, and a span opened inside another span of a
 batch takes that batch) and the span that was open when it began (its
-parent). A counter is a named running sum. Recording is always on: a
+parent). A counter is a named running sum, a peak a named running
+maximum. Recording is always on: a
 span costs a few clock reads and list stores, with no synchronisation
 and no device work. While a torch.profiler session is active each span
 also enters torch.profiler.record_function(name), so the spans land in
@@ -13,14 +14,15 @@ the profiler's trace beside the kernels.
 Records go into a ring of `capacity` entries (the newest are kept);
 each name's total seconds and calls, and the counters, are kept apart
 from the ring and never wrap. The device's side (BatchEvents) adds one
-interval a batch: when the card ran the batch's step, on the same host
-clock.
+interval a batch and kind of work: when the card ran the batch's step
+("step"), or its wide pass ("step.wide"), on the same host clock.
 
     with spans.span("quant.read", batch=b):
         ...
     spans.count("eq_merges")
-    spans.records(), spans.totals(), spans.counters(),
-    spans.device_intervals()
+    spans.peak("label_width_max", 40)
+    spans.records(), spans.totals(), spans.counters(), spans.peaks(),
+    spans.device_intervals(), spans.device_intervals("step.wide")
 """
 
 from __future__ import annotations
@@ -100,13 +102,14 @@ class _Span:
 
 
 class _Thread:
-    """One thread's open spans, totals ([ns, calls] by name id) and
-    counters: written by that thread alone, so that recording takes no
-    lock."""
-    __slots__ = ("stack", "totals", "counters")
+    """One thread's open spans, totals ([ns, calls] by name id),
+    counters and peaks: written by that thread alone, so that recording
+    takes no lock."""
+    __slots__ = ("stack", "totals", "counters", "peaks")
 
     def __init__(self):
         self.stack, self.totals, self.counters = [], {}, {}
+        self.peaks = {}
 
 
 class SpanStore:
@@ -156,10 +159,19 @@ class SpanStore:
         c = self._thread().counters
         c[name] = c.get(name, 0) + n
 
-    def add_interval(self, batch: int, start_ns: int, end_ns: int) -> None:
-        """The card's interval of one batch, on the host's clock."""
+    def peak(self, name: str, value) -> None:
+        """A running maximum: peaks()[name] is the largest value given."""
+        p = self._thread().peaks
+        if name not in p or value > p[name]:
+            p[name] = value
+
+    def add_interval(self, batch: int, start_ns: int, end_ns: int,
+                     kind: str = "step") -> None:
+        """The card's interval of one batch's `kind` of work (the batch
+        step's by default), on the host's clock."""
         i = next(self._dnext)
-        self._dring[i % self.capacity] = (i, batch, start_ns, end_ns)
+        self._dring[i % self.capacity] = (i, batch, start_ns, end_ns,
+                                          self._id(kind))
         if i >= self._dn:
             self._dn = i + 1
 
@@ -185,10 +197,11 @@ class SpanStore:
         out["name"] = names[out["name"]]
         return out
 
-    def device_intervals(self) -> dict:
-        """The device intervals still in the ring, oldest first: numpy
-        arrays batch, start_ns, end_ns (perf_counter_ns)."""
-        rows = self._rows(self._dring, self._dn, 4)
+    def device_intervals(self, kind: str = "step") -> dict:
+        """The device intervals of `kind` still in the ring, oldest
+        first: numpy arrays batch, start_ns, end_ns (perf_counter_ns)."""
+        rows = self._rows(self._dring, self._dn, 5)
+        rows = rows[rows[:, 4] == self._id(kind)]
         return {k: rows[:, i + 1] for i, k in enumerate(
             ("batch", "start_ns", "end_ns"))}
 
@@ -220,6 +233,17 @@ class SpanStore:
         since = since or {}
         return {k: v - since.get(k, 0) for k, v in now.items()}
 
+    def peaks(self) -> dict:
+        """{name: largest value} of every peak."""
+        with self._lock:
+            threads = list(self._threads)
+        out = {}
+        for th in threads:
+            for k, v in list(th.peaks.items()):
+                if k not in out or v > out[k]:
+                    out[k] = v
+        return out
+
 
 STORE = SpanStore()
 
@@ -237,8 +261,16 @@ def records() -> dict:
     return STORE.records()
 
 
-def device_intervals() -> dict:
-    return STORE.device_intervals()
+def peak(name: str, value) -> None:
+    STORE.peak(name, value)
+
+
+def peaks() -> dict:
+    return STORE.peaks()
+
+
+def device_intervals(kind: str = "step") -> dict:
+    return STORE.device_intervals(kind)
 
 
 def totals(since: dict | None = None) -> dict:
@@ -264,7 +296,8 @@ class BatchEvents:
     elapsed time keeps float32's milliseconds fine, and the rounding
     does not add up over a run."""
 
-    def __init__(self, device, depth: int):
+    def __init__(self, device, depth: int, kind: str = "step"):
+        self.kind = kind
         self.stream = torch.cuda.current_stream(device)
         self.pool = [(torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
@@ -289,6 +322,6 @@ class BatchEvents:
         prev, prev_ns = self._prev
         start = prev_ns + round(prev.elapsed_time(e0) * 1e6)
         dur = round(e0.elapsed_time(e1) * 1e6)
-        STORE.add_interval(batch, start, start + dur)
+        STORE.add_interval(batch, start, start + dur, self.kind)
         self.total_ns += dur
         self._prev = (e0, start)

@@ -177,9 +177,9 @@ def test_demo_config5_matches_jax(tl_index, n_shards, monkeypatch):
     join, map_from, quantify = (tpipe.join_pairs, tpipe.map_paired_from_cands,
                                 t_demo.quantify)
 
-    def join_pairs(cand_l, cand_r, *a):
+    def join_pairs(cand_l, cand_r, *a, **kw):
         got["cands"].append((cand_l, cand_r))
-        return join(cand_l, cand_r, *a)
+        return join(cand_l, cand_r, *a, **kw)
 
     def map_paired_from_cands(*a, **kw):
         out = map_from(*a, **kw)

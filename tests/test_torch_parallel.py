@@ -252,10 +252,18 @@ def _assert_same_outputs(got_ranks, want, untied=None, skip=()):
     """Row outputs concatenated in rank order equal (the best hit where
     untied); summed statistics equal on every rank (txp_mass to rtol
     1e-5, fld_hist each to its own best hits)."""
-    assert set(got_ranks[0]) == set(want)
+    marks = set(tpipe.MARK_KEYS)
+    assert set(got_ranks[0]) == set(want) | marks
     for key, w in want.items():
         w = np.asarray(w)
         if key in skip:
+            continue
+        if key in marks:
+            # the port's single-device marks: per row in rank order, each
+            # count the ranks' sum (marks are not summed over the world)
+            got = (sum(r[key] for r in got_ranks) if key == "mark_counts"
+                   else _cat(got_ranks, key))
+            np.testing.assert_array_equal(got, w, err_msg=key)
             continue
         if key in ttp.BEST_KEYS:
             np.testing.assert_array_equal(_cat(got_ranks, key)[untied],

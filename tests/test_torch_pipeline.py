@@ -120,7 +120,10 @@ def test_map_paired_batch_all_keys(setup, lib, mode, batch_i):
     tbatch = {k: torch.from_numpy(v) for k, v in arrays.items()}
     got = tpipe.map_paired_batch(tbatch, tdev, tcfg, fld_t,
                                  torch.from_numpy(cp), torch.from_numpy(co))
-    assert set(got) == set(want)
+    # the port's marks for its wide pass ride beside the JAX package's keys
+    assert set(got) == set(want) | set(tpipe.MARK_KEYS)
+    marks = tpipe.mark_stats(got["mark_counts"])
+    assert marks["frags_marked"] == int(got["frag_marked"].sum())
     assert int(want["num_mapped"]) > 0.4 * int(want["num_processed"])
     untied = ~tied_top_rows(tbatch, tdev, tcfg)
     assert untied.mean() > 0.5

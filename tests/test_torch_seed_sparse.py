@@ -206,7 +206,8 @@ def setup():
 
 
 def _compare_outputs(got: dict, want: dict, untied: np.ndarray):
-    assert set(got) == set(want)
+    # the port's marks for its wide pass ride beside the JAX package's keys
+    assert set(got) == set(want) | set(tpipe.MARK_KEYS)
     for key in sorted(want):
         w, g = np.asarray(want[key]), got[key].numpy()
         assert g.shape == w.shape, key

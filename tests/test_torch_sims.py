@@ -15,6 +15,7 @@ reduced size on the CPU.
   2 of 48.
 """
 
+import json
 import os
 import runpy
 import sys
@@ -202,7 +203,14 @@ def _batch_mapping(jidx, idx, batch):
     invalid = 2**31 - 1
     return {"jax_mapped": np.any(np.asarray(jo["eq_txp"]) != invalid, 1),
             "mapped": np.any(to["eq_txp"].numpy() != invalid, 1),
-            "tied": tied, "other": other}
+            "tied": tied, "other": other,
+            "jax_txp": np.asarray(jo["eq_txp"]),
+            "txp": to["eq_txp"].numpy(),
+            "marked": to["frag_marked"].numpy(),
+            "port": (tb, dev, cfg, torch.from_numpy(logpmf),
+                     torch.as_tensor(libformat.paired_compat_table(fmt)),
+                     torch.as_tensor(libformat.orphan_compat_table(fmt)),
+                     to)}
 
 
 @pytest.fixture(scope="module")
@@ -242,21 +250,37 @@ def paralog(tmp_path_factory):
     def stable_sort(*args, **kw):
         return sort(*args, **{**kw, "is_stable": True})
 
+    batch = _batch(sim["r1"], sim["r2"])
     mp = pytest.MonkeyPatch()
     try:
         jax.clear_caches()      # no program traced with the unstable sort
         mp.setattr(jax.lax, "sort", stable_sort)
         jres_stable = jax_quant()
+        batch_stable = _batch_mapping(jidx, idx, batch)
     finally:
         mp.undo()
         jax.clear_caches()
-    m, res = sim_paralog_gate.run_setting(idx, sim, 8, 16, "cpu")
+    from salmon_tpu_torch.inference import em as em_mod
+    optimize, ems = em_mod.optimize, []
+
+    def tapped_optimize(eq, num_txps, eff_lens, **kw):
+        out = optimize(eq, num_txps, eff_lens, **kw)
+        ems.append({"eq": eq, "eff_lens": np.array(eff_lens, np.float64),
+                    "kw": kw, "iterations": int(out["iterations"])})
+        return out
+
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(em_mod, "optimize", tapped_optimize)
+        m, res = sim_paralog_gate.run_setting(idx, sim, 8, 16, "cpu")
+    finally:
+        mp.undo()
     return {"jdir": str(jdir), "pdir": str(pdir), "jax_sim": jax_sim,
             "sim": sim, "port": m, "res": res, "jres": jres,
             "jax_stable": jsim.metrics(jax_sim, jres_stable),
             "jres_stable": jres_stable,
-            "batch": _batch_mapping(jidx, idx, _batch(sim["r1"],
-                                                      sim["r2"]))}
+            "batch": _batch_mapping(jidx, idx, batch),
+            "batch_stable": batch_stable, "idx": idx, "ems": ems}
 
 
 def test_paralog_sim_byte_equal(paralog):
@@ -271,20 +295,43 @@ def test_paralog_sim_byte_equal(paralog):
 
 def test_paralog_mapping_differs_only_on_ties(paralog):
     """Against the JAX package as it is: the seed candidates of both hold
-    the same scores slot by slot on every row; a fragment that maps in
-    one package and not in the other holds a tie among its candidates
-    (the JAX package's unstable sorts, ROADMAP queue 3), and the quant's
-    mapped counts differ by no more than the number of such fragments
-    (3 of 3,000 here, each a tandem-repeat fragment)."""
+    the same scores slot by slot on every row; a fragment that no cap
+    cut (not marked) and that maps in one package and not in the other
+    holds a tie among its candidates (the JAX package's unstable sorts,
+    ROADMAP queue 3; 3 of 3,000 here, each a tandem-repeat fragment),
+    and the quant's mapped counts differ by no more than the number of
+    fragments that map in one package only."""
     b = paralog["batch"]
     assert not b["other"].any()
     flips = b["mapped"] != b["jax_mapped"]
-    assert (flips <= b["tied"]).all(), np.nonzero(flips & ~b["tied"])
-    assert flips.sum() <= 5, np.nonzero(flips)
+    # a fragment that a cap cut (marked) maps where the port completes its
+    # label; every other flip is a tie's
+    same = flips & ~b["marked"]
+    assert (same <= b["tied"]).all(), np.nonzero(same & ~b["tied"])
+    assert same.sum() <= 5, np.nonzero(same)
     assert abs(paralog["res"].num_mapped - paralog["jres"].num_mapped) \
         <= flips.sum()
     assert paralog["res"].num_processed == paralog["jres"].num_processed \
         == PARALOG_PAIRS
+
+
+def _fasta_txome(path: str):
+    """(names, Txome) of a FASTA of the simulation."""
+    from qbench.lib.txome import Txome
+    names, seqs = [], []
+    with open(path) as fh:
+        for line in fh:
+            if line.startswith(">"):
+                names.append(line[1:].strip())
+                seqs.append([])
+            else:
+                seqs[-1].append(line.strip())
+    codes = [np.frombuffer("".join(q).encode(), np.uint8) for q in seqs]
+    lut = np.full(256, 4, np.uint8)
+    lut[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
+    lens = [c.shape[0] for c in codes]
+    offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    return names, Txome(lut[np.concatenate(codes)], offsets)
 
 
 def test_paralog_metrics_match_jax(paralog):
@@ -292,22 +339,84 @@ def test_paralog_metrics_match_jax(paralog):
     package with its sorts stable (this simulation is made of ties: 54 %
     of its fragments hold one among their seed candidates, and the
     weight_width cut falls inside families of up to 50 equal members):
-    the mapped fragments equal, the Spearmans within 0.01, the family
-    and repeat errors within 0.01, the counts within rtol 5e-3 / atol
-    0.5."""
+    the mapped fragments equal; the batch step's labels equal the JAX
+    package's on every fragment the port did not mark for its wide pass;
+    the marked fragments' completed labels (256 of them) equal the plain
+    reference's (qbench/reference) but on at most 3 %, members that the
+    consensus slack drops and the reference keeps; the quant's counts
+    equal the plain reference's float64 VBEM on the port's classes within
+    rtol 5e-3 / atol 0.5; and, since the wide pass completes the labels
+    that weight_width cut inside the families, the port's Spearmans,
+    family and repeat errors hold near its own readings against the
+    truth and are no worse than the JAX package's by more than 0.01
+    (ROADMAP queue 3 gives both sides' numbers)."""
+    from qbench.reference.mapping import reference_labels
+    from salmon_tpu_torch.mapping.pipeline import WidePass
+    from salmon_tpu_torch.mapping.pipeline import mark_stats as tpipe_marks
+
     j, p = paralog["jax_stable"], paralog["port"]
     assert paralog["res"].num_mapped == paralog["jres_stable"].num_mapped
     assert p["mapping_rate"] == j["mapping_rate"]
-    assert abs(p["spearman_all"] - j["spearman_all"]) <= RHO_ATOL, (p, j)
+    b = paralog["batch_stable"]
+    unmarked = ~b["marked"]
+    assert unmarked.sum() > 0.3 * PARALOG_PAIRS
+    np.testing.assert_array_equal(b["txp"][unmarked],
+                                  b["jax_txp"][unmarked])
+
+    tb, dev, cfg, fld, cp, co, out = b["port"]
+    wide = WidePass(paralog["idx"], cfg, paired=True)
+    done = wide.complete(
+        b["txp"], out["eq_weight"].numpy(), out["eq_bins"].numpy(),
+        out["frag_ok"].numpy(),
+        wide.run(tb, out, dev, fld, (cp, co),
+                 tpipe_marks(out["mark_counts"])["frags_wide"]))
+    names, tx = _fasta_txome(paralog["sim"]["fa"])
+    ref_of = np.array([names.index(n) for n in paralog["idx"].names])
+    rows = np.nonzero(b["marked"])[0][:256]
+    n = tb["lengths_l"].numpy()[rows]
+    assert (n == n[0]).all()
+    want, _, _ = reference_labels(tb["codes_l"].numpy()[rows, :n[0]],
+                                  tb["codes_r"].numpy()[rows, :n[0]], tx,
+                                  {"k": 31, "match": 2, "mismatch": -4,
+                                   "gap_open": 6, "gap_extend": 2,
+                                   "band": 15, "fld_max": 1000,
+                                   "min_score_fraction": 0.65,
+                                   "min_aln_prob": 1e-5, "score_exp": 1.0})
+    got = [tuple(sorted(ref_of[r[r != 2**31 - 1]].tolist()))
+           for r in done["eq"][0][rows]]
+    # the reference keeps what salmon's consensus slack drops: a member
+    # whose chain covers less than 65 % of the best's (5 of these 256)
+    assert sum(g != w for g, w in zip(got, want)) <= 0.03 * rows.size
+
+    # the quant's counts against the plain reference's float64 VBEM on the
+    # port's completed classes, with the port's effective lengths and
+    # online estimate, for the same iterations
+    from qbench.reference import em as ref_em
+    with open(os.path.join(REPO, "qbench", "configs",
+                           "paralog-vbem.json")) as fh:
+        params = json.load(fh)["reference"]
+    (run,) = paralog["ems"]
+    eq, kw = run["eq"], run["kw"]
+    ref = ref_em.vbem(eq.labels, eq.offsets, eq.counts, eq.weights,
+                      run["eff_lens"], kw["online_mass"], kw["total_mapped"],
+                      max(run["iterations"], params["min_iterations"]),
+                      params)
+    np.testing.assert_allclose(paralog["res"].counts, ref, rtol=5e-3,
+                               atol=0.5)
+
+    # against the truth, near the port's own readings (spearman_all
+    # 0.9946, family members 0.9725-0.9983, errors 2e-08 and 0), and no
+    # worse than the JAX package's
+    assert p["spearman_all"] >= 0.98, (p, j)
+    assert p["spearman_all"] >= j["spearman_all"] - RHO_ATOL, (p, j)
     assert len(p["fam_member_spearman"]) == len(j["fam_member_spearman"])
-    for got, want in zip(p["fam_member_spearman"],
-                         j["fam_member_spearman"]):
-        assert abs(got - want) <= RHO_ATOL, (p, j)
+    for got_rho, want_rho in zip(p["fam_member_spearman"],
+                                 j["fam_member_spearman"]):
+        assert got_rho >= 0.96, (p, j)
+        assert got_rho >= want_rho - RHO_ATOL, (p, j)
     for k in ("fam_total_relerr_max", "rep_relerr_max"):
-        assert abs(p[k] - j[k]) <= RHO_ATOL, (k, p, j)
-    np.testing.assert_allclose(paralog["res"].counts,
-                               paralog["jres_stable"].counts,
-                               rtol=5e-3, atol=0.5)
+        assert p[k] <= 1e-6, (k, p, j)
+        assert p[k] <= j[k] + RHO_ATOL, (k, p, j)
 
 
 def test_paralog_main_prints_the_jax_lines(paralog, monkeypatch, capsys):
